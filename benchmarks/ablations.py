@@ -16,7 +16,7 @@ meta stores the final state twice, hdqn.py:320/325, vs textbook
 SEEDS seeds; per-window deltas of the episode counters give learning
 trajectories.
 
-Writes docs/parity/ablations.json.  Run on the TPU chip:
+Writes docs/parity/ablations.json.  Run on the accelerator:
 
     python benchmarks/ablations.py [--quick]
 """

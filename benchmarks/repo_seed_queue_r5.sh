@@ -2,8 +2,8 @@
 # Round-5 repo-side seed queue (VERDICT r4 item 3): bring the repo
 # halves of the DQN and HDQN parity comparisons to n>=8 seeds, matching
 # the torch sides collected by torch_dqn_hdqn_batch.sh.  Serialized --
-# one TPU holder at a time (CLAUDE.md); each seed ~10 min, timeout sized
-# at 4x so a slow compile never gets timeout-killed mid-TPU-execution.
+# one process per accelerator at a time; each timeout is sized at 4x a
+# seed's run so a slow compile never gets killed mid-run.
 set -u
 cd /root/repo
 DOUT=docs/parity/repo_dqn_seeds

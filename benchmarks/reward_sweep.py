@@ -21,7 +21,7 @@ principled extensions along each axis of the tuple
   * velocity-shaping axis:  0.0 / 0.001 / 0.01
   * incentive-gap axis:     r_first 2.0 vs 4.0; r_second 1.0 vs 2.0
 
-Writes docs/parity/reward_sweep.json.  Run on the TPU chip:
+Writes docs/parity/reward_sweep.json.  Run on the accelerator:
 
     python benchmarks/reward_sweep.py [--quick]
 """

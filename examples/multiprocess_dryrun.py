@@ -2,7 +2,7 @@
 single-process virtual mesh): N OS processes, each owning a shard of a
 virtual CPU device mesh, wired together with jax.distributed -- the
 same ``parallel.multihost.initialize`` + global-mesh + shard_map path a
-real multi-host TPU pod slice uses (collectives ride Gloo here, ICI/DCN
+real multi-host GPU cluster uses (collectives ride Gloo here, NCCL
 there; the program is identical, SURVEY.md section 2.6).
 
 Each process runs the full distributed DQN training step
@@ -70,79 +70,41 @@ def main(proc_id: int, num_procs: int, port: int,
     print(f"PROC{proc_id} OK env_steps={int(carry.metrics.env_steps)} "
           f"params_checksum={csum:.6f}", flush=True)
 
-    # Distributed single-kernel trainer across processes: one Pallas
-    # kernel per device (interpreter on CPU), local-SGD pmean of
-    # params/moments crossing the process boundary at chunk ends.
-    os.environ["MGT_FUSED_INTERPRET"] = "1"
-    dmesh = make_mesh(data=ndev, model=1)
-    fcfg = D.DQNConfig(memory_capacity=2 * ndev * 128,
-                       opponent=D.OPP_SELFPLAY)
-    fcarry = spmd.spmd_fused_dqn_init(jax.random.key(3), fcfg, env_params,
-                                      num_envs=ndev * 128, mesh=dmesh)
-    for s in range(2):
-        fcarry = spmd.spmd_fused_dqn_chunk(dmesh, fcfg, env_params, fcarry,
-                                           3, seed=s, greedy=True)
-    jax.block_until_ready(fcarry["p"][0])
-    assert fcarry["env_steps"] == 6 * ndev * 128
-    fsum = float(sum(np.abs(np.asarray(a.addressable_data(0))).sum()
-                     for a in fcarry["p"]))
-    print(f"PROC{proc_id} FUSED OK env_steps={fcarry['env_steps']} "
-          f"params_checksum={fsum:.6f}", flush=True)
-
-    # Distributed fused Rainbow: adds the lane-sharded per-device NOISE
-    # (each process generates and keeps its own shards) to the same
-    # cross-process local-SGD pattern.
+    # The other three XLA families over a pure data-parallel mesh that
+    # spans the processes: per-step gradient pmean, per-device replay
+    # cursors and psum'd counters crossing the process boundary.
+    from merging_gym_tpu.agents import drqn as DR
+    from merging_gym_tpu.agents import hdqn as H
     from merging_gym_tpu.agents import rainbow as R
 
-    rcfg = R.RainbowConfig(memory_capacity=2 * ndev * 128, obs_scale=0.01,
-                           opponent=D.OPP_SELFPLAY)
-    rcarry = spmd.spmd_fused_rainbow_init(jax.random.key(5), rcfg,
-                                          env_params, num_envs=ndev * 128,
-                                          mesh=dmesh)
-    rcarry = spmd.spmd_fused_rainbow_chunk(dmesh, rcfg, env_params, rcarry,
-                                           3, seed=0, greedy=True)
-    jax.block_until_ready(rcarry["p"][0])
-    assert rcarry["env_steps"] == 3 * ndev * 128
-    rsum = float(sum(np.abs(np.asarray(a.addressable_data(0))).sum()
-                     for a in rcarry["p"]))
-    print(f"PROC{proc_id} RAINBOW OK env_steps={rcarry['env_steps']} "
-          f"params_checksum={rsum:.6f}", flush=True)
-
-    # Distributed fused HDQN: the two-timescale learner pair (upper +
-    # lower nets) through the same cross-process local-SGD pattern
-    # (VERDICT r4 item 6: previously only virtual-mesh tested).
-    from merging_gym_tpu.agents.hdqn import HDQNConfig
-
-    hcfg = HDQNConfig(memory_capacity=2 * ndev * 128,
-                      goal_memory_capacity=2 * ndev * 128,
-                      opponent=D.OPP_SELFPLAY)
-    hcarry = spmd.spmd_fused_hdqn_init(jax.random.key(7), hcfg, env_params,
-                                       num_envs=ndev * 128, mesh=dmesh)
-    hcarry = spmd.spmd_fused_hdqn_chunk(dmesh, hcfg, env_params, hcarry,
-                                        3, seed=0, greedy=True)
-    jax.block_until_ready(hcarry["u_p"][0])
-    assert hcarry["env_steps"] == 3 * ndev * 128
-    hsum = float(sum(np.abs(np.asarray(a.addressable_data(0))).sum()
-                     for a in list(hcarry["u_p"]) + list(hcarry["l_p"])))
-    print(f"PROC{proc_id} HDQN OK env_steps={hcarry['env_steps']} "
-          f"params_checksum={hsum:.6f}", flush=True)
-
-    # Distributed fused DRQN: per-env recurrent state (both seats)
-    # lane-sharded, truncated-BPTT learner through the same pattern.
-    from merging_gym_tpu.agents.drqn import DRQNConfig
-
-    dcfg = DRQNConfig(memory_capacity=2 * ndev * 128, seq_len=3, burn_in=1,
-                      opponent=D.OPP_SELFPLAY)
-    dcarry = spmd.spmd_fused_drqn_init(jax.random.key(9), dcfg, env_params,
-                                       num_envs=ndev * 128, mesh=dmesh)
-    dcarry = spmd.spmd_fused_drqn_chunk(dmesh, dcfg, env_params, dcarry,
-                                        6, seed=0, greedy=True)
-    jax.block_until_ready(dcarry["p"][0])
-    assert dcarry["env_steps"] == 6 * ndev * 128
-    dsum = float(sum(np.abs(np.asarray(a.addressable_data(0))).sum()
-                     for a in dcarry["p"]))
-    print(f"PROC{proc_id} DRQN OK env_steps={dcarry['env_steps']} "
-          f"params_checksum={dsum:.6f}", flush=True)
+    dmesh = make_mesh(data=ndev, model=1)
+    families = (
+        ("RAINBOW", R.RainbowConfig(memory_capacity=32, batch_size=8,
+                                    per=True, n_step=3, pmean_axis="data"),
+         spmd.spmd_rainbow_init, spmd.spmd_rainbow_chunk,
+         lambda c: c.params),
+        ("HDQN", H.HDQNConfig(memory_capacity=32, goal_memory_capacity=8,
+                              batch_size=8, opponent=D.OPP_SELFPLAY,
+                              pmean_axis="data"),
+         spmd.spmd_hdqn_init, spmd.spmd_hdqn_chunk,
+         lambda c: (c.lower.params, c.upper.params)),
+        ("DRQN", DR.DRQNConfig(memory_capacity=8, batch_size=4, seq_len=4,
+                               burn_in=1, opponent=D.OPP_SELFPLAY,
+                               pmean_axis="data"),
+         spmd.spmd_drqn_init, spmd.spmd_drqn_chunk, lambda c: c.params),
+    )
+    for i, (tag, fcfg, init, chunk, params_of) in enumerate(families):
+        fcarry = init(jax.random.key(5 + i), fcfg, env_params,
+                      num_envs=ndev * 4, mesh=dmesh)
+        for _ in range(2):
+            fcarry = chunk(dmesh, fcfg, env_params, fcarry, 3)
+        jax.block_until_ready(params_of(fcarry))
+        assert int(fcarry.metrics.env_steps) == 6 * ndev * 4
+        fsum = float(sum(np.abs(np.asarray(a.addressable_data(0))).sum()
+                         for a in jax.tree.leaves(params_of(fcarry))))
+        print(f"PROC{proc_id} {tag} OK "
+              f"env_steps={int(fcarry.metrics.env_steps)} "
+              f"params_checksum={fsum:.6f}", flush=True)
 
     # Multi-host checkpoint/resume (VERDICT r4 item 4): save the XLA
     # dp x tp carry -- params replicated, env batch + replay SHARDED over

@@ -1,11 +1,11 @@
-"""merging_gym_tpu: a TPU-native two-player on-ramp merging RL framework.
+"""merging_gym_tpu: a JAX two-player on-ramp merging RL framework.
 
 A from-scratch JAX/XLA re-design with the full capability surface of the
 reference ``merging-gym`` project (YikangZhang1641/merging-gym): the
 merging simulator, level-k DQN / hierarchical DQN / Rainbow-C51 training,
 human-experiment harness with CSV logging, checkpointing, and rendering --
 rebuilt as pure functions over state PyTrees that jit, vmap, and shard
-across TPU device meshes.
+across GPU device meshes.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Double-DQN with level-k opponent curriculum -- fully on-device.
 
-TPU-native redesign of the reference DQN trainer (scripts/main.py:76-245):
+Redesign of the reference DQN trainer (scripts/main.py:76-245):
 the serial env loop, host numpy replay and per-step torch SGD become one
 jitted ``lax.scan`` in which thousands of vectorised envs, the on-device
 ring replay and the learner all advance in lockstep.  Nothing touches the
@@ -31,7 +31,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 from merging_gym_tpu.core import constants as C
 from merging_gym_tpu.core.env import EnvParams, swap_obs
@@ -81,7 +81,7 @@ class DQNConfig:
 
 @struct.dataclass
 class DQNState:
-    """Learner state: the TPU analog of the reference ``DQN`` object."""
+    """Learner state: the counterpart of the reference ``DQN`` object."""
 
     params: Any
     target_params: Any

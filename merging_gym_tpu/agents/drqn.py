@@ -1,7 +1,7 @@
 """Recurrent DQN (DRQN) trainer: sequence replay + scan-over-time learner.
 
 The reference's DRQN is broken dead code (main.py:49-74); this is the
-working TPU-native version SURVEY.md section 5 prescribes.  Design:
+working on-device version SURVEY.md section 5 prescribes.  Design:
 
 * the actor carries per-env LSTM state, zeroed on episode reset;
 * each env accumulates non-overlapping windows of ``seq_len`` steps
@@ -30,7 +30,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 from merging_gym_tpu.agents import dqn as D
 from merging_gym_tpu.agents.policies import EPSILON, eps_greedy_from_q

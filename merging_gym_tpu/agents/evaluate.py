@@ -121,61 +121,6 @@ def round_robin(named_policies: dict, env_params: EnvParams, key: jax.Array,
     return results
 
 
-def evaluate_fused(params1, params2=None, env_params: EnvParams = None,
-                   num_envs: int = 4096, num_steps: int = 2600,
-                   greedy: bool = True, epsilon: float = 0.7,
-                   seed: int = 0, compute_dtype: str = "float32") -> dict:
-    """``evaluate`` via the single-kernel policy rollout (Q-net MLPs only).
-
-    ``params1``/``params2`` are ``nn.mlp.qnet_init`` param dicts;
-    ``params2=None`` plays L0.  Runs the whole match as ONE Pallas
-    kernel (ops.fused_policy_rollout) and computes the same outcome
-    dict host-side.  With the default ``num_steps`` >= the 2,501-step
-    timeout, every env finishes at least one episode.
-    ``compute_dtype="bfloat16"`` stores the nets' weights bf16-resident
-    (the fused_policy_rollout mixed-precision contract) -- the capacity
-    lever for evaluating production-width nets.
-    """
-    from merging_gym_tpu.ops.fused_policy_rollout import fused_policy_rollout
-
-    out = fused_policy_rollout(
-        num_steps, num_envs, params1, params2, greedy=greedy,
-        epsilon=epsilon, seed=seed,
-        env_params=env_params or EnvParams(),
-        compute_dtype=compute_dtype)
-    done = np.asarray(out["done"])            # [T, N]
-    winner = np.asarray(out["winner"])
-    collision = np.asarray(out["collision"])
-    rewards = np.asarray(out["rewards"])      # [T, 2, N]
-
-    d = done
-    episodes = int(d.sum())
-    counts = {
-        "episodes": episodes,
-        "p1_first": int((d & (winner == 1)).sum()),
-        "p2_first": int((d & (winner == 2)).sum()),
-        "collisions": int((d & collision).sum()),
-        "timeouts": int((d & (winner == 0) & ~collision).sum()),
-    }
-    # Sum of finished-episode returns = all rewards up to each env's last
-    # done step (the tail after it belongs to an unfinished episode).
-    T = done.shape[0]
-    last_done = np.where(d.any(axis=0), T - 1 - d[::-1].argmax(axis=0), -1)
-    in_finished = np.arange(T)[:, None] <= last_done[None, :]   # [T, N]
-    ret_sums = (rewards * in_finished[:, None, :]).sum(axis=(0, 2))
-
-    eps = max(episodes, 1)
-    return {
-        **counts,
-        "p1_first_rate": counts["p1_first"] / eps,
-        "p2_first_rate": counts["p2_first"] / eps,
-        "collision_rate": counts["collisions"] / eps,
-        "timeout_rate": counts["timeouts"] / eps,
-        "mean_return_p1": float(ret_sums[0]) / eps,
-        "mean_return_p2": float(ret_sums[1]) / eps,
-    }
-
-
 def evaluate_drqn(params1, policy2: Policy | None = None,
                   env_params: EnvParams | None = None,
                   key: jax.Array | None = None, num_envs: int = 256,

@@ -1,6 +1,6 @@
 """Hierarchical goal-conditioned DQN (h-DQN) -- vectorised, on-device.
 
-TPU-native redesign of the reference HDQN trainer (scripts/hdqn.py): the
+Redesign of the reference HDQN trainer (scripts/hdqn.py): the
 meta-controller (``Goal_DQN``, hdqn.py:58-139) picks one of 3 goals, the
 low-level controller (``HDQN``, hdqn.py:142-221) picks velocity actions
 conditioned on ``[goal] + obs`` (11-dim input, hdqn.py:146,291), and the
@@ -34,7 +34,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 from merging_gym_tpu.agents import dqn as D
 from merging_gym_tpu.agents.policies import EPSILON, eps_greedy_from_q
@@ -87,8 +87,7 @@ class HDQNConfig:
     # pmean'd gradients, globally agreed learn gates.
     pmean_axis: str | None = struct.field(pytree_node=False, default=None)
     # Mixed precision for both learners' forwards (agents.dqn contract:
-    # bf16 matmul operands, f32 masters/moments); flows into the fused
-    # kernel too (ops.fused_hdqn).
+    # bf16 matmul operands, f32 masters/moments).
     compute_dtype: str = struct.field(pytree_node=False, default="float32")
 
     def lower_cfg(self) -> D.DQNConfig:

@@ -19,7 +19,7 @@ from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 from merging_gym_tpu.core import constants as C
 from merging_gym_tpu.core.env import swap_obs

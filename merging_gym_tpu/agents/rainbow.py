@@ -1,6 +1,6 @@
 """Rainbow DQN (C51 + NoisyNet + Dueling, optional PER / n-step) on-device.
 
-TPU-native redesign of the reference Rainbow trainer
+Redesign of the reference Rainbow trainer
 (scripts/ranbowdqn.py:623-700) with the full actor+replay+learner fused
 into one jitted scan, like agents.dqn.
 
@@ -36,7 +36,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 from merging_gym_tpu.agents import dqn as D
 from merging_gym_tpu.core import constants as C

@@ -1,6 +1,6 @@
 """World constants of the two-player on-ramp merging game.
 
-TPU-native re-design of the constants block of the reference simulator
+Re-design of the constants block of the reference simulator
 (reference: merging_gym/envs/merging_env.py:22-46).  All values are plain
 Python floats/ints so that they combine weakly with whatever dtype the
 jitted state carries (f32 on device, f64 on the CPU parity oracle path).

@@ -1,6 +1,6 @@
 """Pure-functional two-player merging environment.
 
-TPU-first redesign of the reference ``MergeEnv`` (merging_gym/envs/
+Device-first redesign of the reference ``MergeEnv`` (merging_gym/envs/
 merging_env.py:72-230): the mutable gym class becomes a state PyTree plus
 pure ``reset``/``step`` functions that jit, vmap and shard.  Rendering,
 experiment screens and human input live in :mod:`merging_gym_tpu.ui`,
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 from merging_gym_tpu.core import constants as C
 from merging_gym_tpu.core.control import action_to_acc

@@ -12,7 +12,7 @@ on *rounded* centres:
 * ``shapely.Polygon.intersects`` counts boundary touching as intersection,
   so the comparisons are inclusive (``<=``).
 
-This module is the TPU-native replacement for the GEOS/pygame dependency:
+This module is the on-device replacement for the GEOS/pygame dependency:
 branch-free elementwise math that vmaps over thousands of envs.
 """
 

@@ -1,7 +1,7 @@
 """Gymnasium VectorEnv over the native C++ batch core.
 
 For consumers outside the JAX ecosystem (SB3-style trainers, evaluation
-scripts) who want batched stepping without a TPU: wraps
+scripts) who want batched stepping without an accelerator: wraps
 ``core.native.NativeMergeEnv`` -- the bit-exact C++ env core -- in the
 ``gymnasium.vector.VectorEnv`` interface.  Single-agent view: player 2
 is a pluggable opponent callable (default L0), as in
@@ -14,7 +14,7 @@ env).  ``terminated`` covers collisions and race completion even when
 they coincide with the step cap; ``truncated`` is the pure timeout.
 
 Throughput is the native core's (~0.4-1.8M serial env-steps/s on this
-host's CPU); for TPU-scale throughput use core.vector / ops.fused_rollout.
+host's CPU); for accelerator throughput use core.vector / ops.fused_rollout.
 """
 
 from __future__ import annotations

@@ -1,5 +1,9 @@
 """Checkpoint / resume: full-training-state snapshots via orbax.
 
+orbax is imported only when a ``CheckpointManager`` is built, so training
+without ``--checkpoint-every``/``--resume`` and the ``params.npz`` export
+need numpy alone.
+
 The reference saves only net state_dicts at run end (main.py:244-245,
 hdqn.py:362-366, ranbowdqn.py:699-700) -- no optimizer, replay, env or
 RNG state, so a "resume" is a cold restart (SURVEY.md section 5).  Here a
@@ -21,7 +25,6 @@ from typing import Any
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
 
 
 def run_dir_name(label: str, strategy: str, reward_tuple, root: str = ".") -> str:
@@ -46,6 +49,13 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3):
+        try:
+            import orbax.checkpoint as ocp
+        except ImportError as e:
+            raise RuntimeError(
+                "full-state checkpoints (--checkpoint-every, --resume) need "
+                "the orbax-checkpoint package, which is not installed") from e
+        self._ocp = ocp
         self.directory = os.path.abspath(directory)
         options = ocp.CheckpointManagerOptions(
             max_to_keep=max_to_keep, create=True)
@@ -54,7 +64,7 @@ class CheckpointManager:
     def save(self, step: int, state: Any, wait: bool = False) -> None:
         if jax.process_count() == 1:
             state = jax.device_get(state)
-        self._mgr.save(step, args=ocp.args.StandardSave(state))
+        self._mgr.save(step, args=self._ocp.args.StandardSave(state))
         if wait or jax.process_count() > 1:
             # Multi-process: the async write must be fenced before any
             # process proceeds (a later restore may race the writers).
@@ -70,7 +80,7 @@ class CheckpointManager:
             # each leaf with the target's global sharding, every process
             # reading its own shards.
             target = state_like
-        return self._mgr.restore(step, args=ocp.args.StandardRestore(target))
+        return self._mgr.restore(step, args=self._ocp.args.StandardRestore(target))
 
     def latest_step(self):
         return self._mgr.latest_step()

@@ -9,8 +9,9 @@ turns those reads into the same scalar series on disk:
 
 * JSONL (one object per log call) -- machine-readable, append-only;
 * CSV mirror -- notebook-friendly;
-* optional TensorBoard via tensorboardX when installed (it is not baked
-  into this image; the writer degrades gracefully).
+* TensorBoard via tensorboardX, when asked for (``tensorboard=True``,
+  ``cli train --tensorboard``) and installed.  It is opt-in because
+  tensorboardX imports torch.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ from typing import Mapping
 
 
 class MetricsWriter:
-    """Append-only scalar writer: JSONL + CSV (+ tensorboardX if present)."""
+    """Append-only scalar writer: JSONL + CSV (+ tensorboardX if asked)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, tensorboard: bool = False):
         self.log_dir = os.path.abspath(log_dir)
         os.makedirs(self.log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.log_dir, "scalars.jsonl"), "a")
@@ -34,11 +35,12 @@ class MetricsWriter:
         self._csv_writer = None
         self._csv_fields = None
         self._tb = None
-        try:  # optional, not baked into this image
-            from tensorboardX import SummaryWriter  # type: ignore
-            self._tb = SummaryWriter(log_dir=self.log_dir)
-        except Exception:
-            pass
+        if tensorboard:
+            try:
+                from tensorboardX import SummaryWriter  # type: ignore
+                self._tb = SummaryWriter(log_dir=self.log_dir)
+            except ImportError:
+                print("tensorboardX is not installed; logging JSONL + CSV")
         self._t0 = time.time()
 
     def log(self, step: int, scalars: Mapping[str, float]) -> None:

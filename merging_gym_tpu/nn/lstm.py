@@ -3,7 +3,7 @@
 The reference defines a ``DRQN`` (scripts/main.py:49-74) that can never
 run: it references an undefined ``Flatten`` and an unused Conv2d, and is
 never instantiated -- dead code.  SURVEY.md section 5 prescribes the
-TPU-native resurrection: scan over time on-device.  The intended
+On-device resurrection: scan over time.  The intended
 architecture (main.py:60-66, minus the dead conv path) is kept:
 
     fc1: obs -> 200 (ReLU, U(0,1) weights)   # main.py:60-61

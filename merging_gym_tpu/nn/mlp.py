@@ -1,10 +1,9 @@
 """Q-network MLPs as transparent param-PyTree + pure-apply pairs.
 
-TPU-native counterpart of the reference ``Net`` modules
-(scripts/main.py:30-47, hdqn.py:38-55): input -> 200 -> 100 -> outputs
-with ReLU, weights U(0, 1), biases torch-default.  Params are plain
-nested dicts, so they replicate/shard with jax.sharding, vmap over
-ensembles, and feed the Pallas fused kernel in ops.fused_mlp directly.
+Counterpart of the reference ``Net`` modules (scripts/main.py:30-47,
+hdqn.py:38-55): input -> 200 -> 100 -> outputs with ReLU, weights
+U(0, 1), biases torch-default.  Params are plain nested dicts, so they
+replicate/shard with jax.sharding and vmap over ensembles.
 """
 
 import jax

@@ -1,27 +1,33 @@
-"""Pallas TPU kernel: the entire vectorized env rollout as ONE kernel.
+"""The whole vectorised env rollout as one GPU kernel (Pallas, Triton route).
 
-The lax.scan rollout pays a fixed per-kernel dispatch cost per step
-(docs/BENCHMARKS.md measures ~57us/iteration for even a trivial scan
-body on this runtime).  This kernel removes the per-step dispatch
-entirely: the time axis is the Pallas *grid* -- TPU grid steps execute
-sequentially on the core with output blocks pipelined to HBM -- and the
-env state (positions, velocities, winner machine, step counters) lives
-in VMEM scratch that persists across grid steps.  One kernel launch
-simulates all T steps for all N envs, auto-resets included.
+Every env is independent and its state is six numbers (two positions, two
+velocities, the winner machine and the step counter), so one program of
+the kernel owns a tile of ``block_envs`` envs, keeps their state in
+registers and runs the whole horizon in a ``fori_loop``.  The plain XLA
+rollout (``core.vector.rollout``) instead runs each env step as one
+while-loop trip of several small kernels.
 
-Layouts are lane-aligned: the env axis is last ([T, c, N] trajectories,
-[c, N] state), so N is a multiple of 128.
+Layouts are env-last, so each per-step store is contiguous along the env
+axis: trajectories are ``[T, c, N]``, actions ``[T, 2, N]``.  The grid has
+``cdiv(N, block_envs)`` programs and the tail tile is masked, so any
+``num_envs`` works.
 
 Two action sources:
-* ``fused_rollout(actions=...)`` -- precomputed i32[T, 2, N] actions
-  (sentinel -1 = the None/L0 arm). Math matches core.env.step exactly
-  (same f32 ops), so this mode is locked against step_batch in tests.
-* ``fused_rollout(seed=...)`` -- uniform random joint actions in
-  [-1, 5) drawn in-kernel from the TPU PRNG (the bench.py policy,
-  distribution-equivalent, no HBM action traffic at all).
 
-Deterministic starts only (the auto-reset writes compile-time
-constants); the XLA path in core.vector handles randomized starts.
+* ``actions=`` -- precomputed i32[T, 2, N] (``-1`` is the ACTION_NONE arm);
+* ``seed=`` -- uniform joint actions in [-1, 5) from the counter-based
+  generator of ``core.counter_rng``, keyed by (seed, env, step).  The
+  stream depends on the seed alone, not on the tiling.
+
+Two outputs: ``fused_rollout`` stores the per-step trajectory;
+``fused_rollout_counters`` keeps per-env outcome counters in registers
+and stores them once.
+
+Deterministic starts only (the auto-reset writes constants); randomised
+starts stay on the XLA path.  ``reference_rollout`` and
+``reference_rollout_counters`` are that plain path with the same action
+streams: the tests' reference and the baseline the kernel is timed
+against.
 """
 
 from __future__ import annotations
@@ -30,406 +36,315 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from merging_gym_tpu.core import constants as C
+from merging_gym_tpu.core import counter_rng
+from merging_gym_tpu.core.env import EnvParams
 from merging_gym_tpu.core.geometry import lon2coord, round_half_away
+from merging_gym_tpu.core.vector import autoreset_step, reset_batch, rollout
+
+# Envs per program and warps per program: one env per thread, 32 envs per
+# program.  Fastest of the sweep in benchmarks/rollout_kernel.py at 4,096
+# envs on an H100, and within 11% of the fastest at 65,536 envs (PERF.md,
+# "Kernel decisions").
+BLOCK_ENVS = 32
+NUM_WARPS = 1
+
+TRAJ_KEYS = ("obs", "rewards", "done", "winner", "collision")
 
 
-
-def _random_reset_vals(n):
-    """Randomised-start reset values via the on-chip PRNG: the
-    commented-out mode of merging_env.py:219-221 as realised in
-    core.env.reset -- pos1 ~ N(50, 5), vel1 ~ N(20, 3), pos2 ~ U(50 +- 4),
-    vel2 ~ U(15, 30); normals via Box-Muller on 24-bit uniforms (Mosaic
-    has no u32->f32 cast; 24-bit values fit int32, which does cast).
-    Caller must have seeded the PRNG this grid step.  Shared by the
-    policy-rollout and all three fused trainer kernels.
-    """
-    rs = pltpu.bitcast(pltpu.prng_random_bits((4, n)), jnp.uint32)
-    rs24 = pltpu.bitcast(rs >> 8, jnp.int32)
-    u = [rs24[j].astype(jnp.float32) * (1.0 / 16777216.0) for j in range(4)]
-    r = jnp.sqrt(-2.0 * jnp.log(jnp.maximum(u[0], 1e-7)))
-    theta = (2.0 * 3.14159265358979) * u[1]
-    z1, z2 = r * jnp.cos(theta), r * jnp.sin(theta)
-    pos_r = jnp.stack([C.START_POINT + 5.0 * z1,
-                       C.START_POINT + (u[2] * C.VEHICLE_H
-                                        - C.VEHICLE_H / 2)])
-    vel_r = jnp.stack([C.START_VEL + 3.0 * z2,
-                       (C.START_VEL - 5.0) + 15.0 * u[3]])
-    x1r, y1r = lon2coord(pos_r[0], +1.0)
-    x2r, y2r = lon2coord(pos_r[1], -1.0)
-    return pos_r, vel_r, jnp.stack([x1r, y1r, x2r, y2r])
-
-
-def _env_step_math(pos, vel, winner, tcnt, done_prev, actions, rewards_cfg,
-                   max_steps):
-    """One env step on [2, N]-shaped state; mirrors core.env.step."""
-    r_first, r_second, r_collision, vel_penalty, time_penalty = rewards_cfg
-
-    is_null = actions < 0
-    # TARGET_VELS is the arithmetic table {a: 10*a} (merging_env.py:101);
-    # computing it avoids an array constant/gather inside the kernel.
-    tv = 10.0 * jnp.clip(actions, 0, C.NUM_ACTIONS - 1).astype(jnp.float32)
-    acc = jnp.where(is_null, 0.0, (tv - vel) / C.PREDICTION_T)
+def _player_step(pos, vel, action, pen_fn):
+    """Dynamics of one player (mirrors core.env.step, same f32 ops)."""
+    tv = 10.0 * jnp.clip(action, 0, C.NUM_ACTIONS - 1).astype(jnp.float32)
+    acc = jnp.where(action < 0, 0.0, (tv - vel) / C.PREDICTION_T)
     vel = jnp.maximum(0.0, vel + acc * C.DT)
     pos = pos + vel * C.DT
+    return pos, vel, pen_fn(vel)
+
+
+def _env_step(state, a1, a2, rcfg, max_steps):
+    """One step of a tile of envs, all state as per-env vectors.
+
+    Mirrors core.env.step: the reference's first/second-across winner
+    machine, the velocity penalty and the rounded-box collision test.
+    """
+    pos1, pos2, vel1, vel2, winner, tcnt = state
+    r_first, r_second, r_collision, vel_penalty, time_penalty = rcfg
+
+    def pen_fn(v):
+        return -time_penalty - vel_penalty * jnp.abs(v - C.V_REF)
+
+    pos1, vel1, pen1 = _player_step(pos1, vel1, a1, pen_fn)
+    pos2, vel2, pen2 = _player_step(pos2, vel2, a2, pen_fn)
 
     tcnt = tcnt + 1
-    done = done_prev | (tcnt >= max_steps)
+    done = tcnt >= max_steps
 
-    pen = -time_penalty - vel_penalty * jnp.abs(vel - C.V_REF)
+    c1 = pos1 > C.END_POINT
+    r1 = jnp.where(c1, jnp.where(winner == 0, pen1 + r_first,
+                                 jnp.where(winner == 1, 0.0, pen1 + r_second)),
+                   pen1)
+    done = done | (c1 & (winner == 2))
+    w1 = jnp.where(c1 & (winner == 0), 1, winner)
 
-    w0 = winner
-    c1 = pos[0] > C.END_POINT
-    r1 = jnp.where(c1,
-                   jnp.where(w0 == 0, pen[0] + r_first,
-                             jnp.where(w0 == 1, 0.0, pen[0] + r_second)),
-                   pen[0])
-    done = done | (c1 & (w0 == 2))
-    w1 = jnp.where(c1 & (w0 == 0), 1, w0)
-
-    c2 = pos[1] >= C.END_POINT
-    r2 = jnp.where(c2,
-                   jnp.where(w1 == 0, pen[1] + r_first,
-                             jnp.where(w1 == 2, 0.0, pen[1] + r_second)),
-                   pen[1])
+    c2 = pos2 >= C.END_POINT
+    r2 = jnp.where(c2, jnp.where(w1 == 0, pen2 + r_first,
+                                 jnp.where(w1 == 2, 0.0, pen2 + r_second)),
+                   pen2)
     done = done | (c2 & (w1 == 1))
     w2 = jnp.where(c2 & (w1 == 0), 2, w1)
 
-    x1, y1 = lon2coord(pos[0], +1.0)
-    x2, y2 = lon2coord(pos[1], -1.0)
+    x1, y1 = lon2coord(pos1, +1.0)
+    x2, y2 = lon2coord(pos2, -1.0)
     col = ((jnp.abs(round_half_away(x1) - round_half_away(x2)) <= C.VEHICLE_H)
            & (jnp.abs(round_half_away(y1) - round_half_away(y2)) <= C.VEHICLE_W))
     done = done | col
-    rewards = jnp.stack([r1, r2]) + jnp.where(col, r_collision, 0.0)
-
-    obs = jnp.stack([
-        x2 - x1, y2 - y1, vel[1] - vel[0], C.END_POINT - pos[0], vel[0],
-        x1 - x2, y1 - y2, vel[0] - vel[1], C.END_POINT - pos[1], vel[1],
-    ])
-    coords = jnp.stack([x1, y1, x2, y2])
-    return pos, vel, w2, tcnt, done, col, rewards, obs, coords
+    bonus = jnp.where(col, r_collision, 0.0)
+    obs = (x2 - x1, y2 - y1, vel2 - vel1, C.END_POINT - pos1, vel1,
+           x1 - x2, y1 - y2, vel1 - vel2, C.END_POINT - pos2, vel2)
+    return ((pos1, pos2, vel1, vel2, w2, tcnt), done, col,
+            (r1 + bonus, r2 + bonus), obs)
 
 
-def _kernel(rewards_ref, seed_ref, actions_ref, obs_ref, rew_ref, done_ref,
-            win_ref, col_ref, pos_s, vel_s, win_s, t_s, *, n, use_prng,
-            unroll):
-    # Grid = (env tiles, time/unroll): tiles run sequentially, each
-    # sweeping all T steps (``unroll`` env steps per grid iteration) with
-    # the scratch state re-initialised at its first step.
-    i_env = pl.program_id(0)
-    i = pl.program_id(1)
+def _reset_where(done, state):
+    pos1, pos2, vel1, vel2, winner, tcnt = state
+    return (jnp.where(done, C.START_POINT, pos1),
+            jnp.where(done, C.START_POINT, pos2),
+            jnp.where(done, C.START_VEL, vel1),
+            jnp.where(done, C.START_VEL, vel2),
+            jnp.where(done, 0, winner),
+            jnp.where(done, 0, tcnt))
 
-    @pl.when(i == 0)
-    def _():
-        pos_s[:] = jnp.full((2, n), C.START_POINT, jnp.float32)
-        vel_s[:] = jnp.full((2, n), C.START_VEL, jnp.float32)
-        win_s[:] = jnp.zeros((1, n), jnp.int32)
-        t_s[:] = jnp.zeros((1, n), jnp.int32)
 
-    if use_prng:
-        pltpu.prng_seed(seed_ref[0] + i * pl.num_programs(0) + i_env)
+def _kernel(rcfg_ref, seed_ref, actions_ref, *out_refs, num_envs, num_steps,
+            block, max_steps, use_seed, counters):
+    env = pl.program_id(0) * block + jnp.arange(block, dtype=jnp.int32)
+    live = env < num_envs
+    rcfg = tuple(rcfg_ref[k] for k in range(5))
+    if use_seed:
+        key = counter_rng.env_key(seed_ref[0], env)
 
-    rcfg = tuple(rewards_ref[k] for k in range(5))
-    pos, vel = pos_s[:], vel_s[:]
-    winner, tcnt = win_s[:][0], t_s[:][0]
-    for k in range(unroll):
-        if use_prng:
-            # Successive draws advance the per-iteration-seeded PRNG state.
-            bits = pltpu.bitcast(pltpu.prng_random_bits((2, n)), jnp.uint32)
-            actions = (bits % jnp.uint32(C.NUM_ACTIONS + 1)).astype(jnp.int32) - 1
+    f32 = functools.partial(jnp.full, (block,), dtype=jnp.float32)
+    i32 = functools.partial(jnp.full, (block,), dtype=jnp.int32)
+    state = (f32(C.START_POINT), f32(C.START_POINT), f32(C.START_VEL),
+             f32(C.START_VEL), i32(0), i32(0))
+    acc0 = (f32(0.0), f32(0.0), i32(0), i32(0), i32(0), i32(0))
+
+    def body(t, carry):
+        state, acc = carry
+        if use_seed:
+            a1, a2 = counter_rng.step_actions(key, t)
         else:
-            actions = actions_ref[k]
-
-        pos, vel, winner, tcnt, done, col, rewards, obs, _ = _env_step_math(
-            pos, vel, winner, tcnt,
-            jnp.zeros((n,), bool), actions, rcfg, seed_ref[1])
-
-        obs_ref[k] = obs
-        rew_ref[k] = rewards
-        done_ref[k] = done.astype(jnp.int32)[None, :]
-        win_ref[k] = winner[None, :]
-        col_ref[k] = col.astype(jnp.int32)[None, :]
-
-        # Auto-reset (deterministic start constants).
-        reset = done[None, :]
-        pos = jnp.where(reset, C.START_POINT, pos)
-        vel = jnp.where(reset, C.START_VEL, vel)
-        winner = jnp.where(done, 0, winner)
-        tcnt = jnp.where(done, 0, tcnt)
-    pos_s[:] = pos
-    vel_s[:] = vel
-    win_s[:] = winner[None, :]
-    t_s[:] = tcnt[None, :]
-
-
-def _kernel_counters(rewards_ref, seed_ref, actions_ref, rewsum_ref,
-                     counts_ref, pos_s, vel_s, win_s, t_s, *, n, use_prng,
-                     unroll):
-    """Reduce-on-chip variant: identical env math and PRNG/action stream
-    to ``_kernel``, but instead of streaming [T, ...] trajectories to HBM
-    it accumulates per-env outcome counters in the (VMEM-resident) output
-    blocks.  This removes the ~60 B/env-step HBM trajectory traffic, so
-    launch length is no longer bounded by HBM *capacity* and the ~25 ms
-    per-launch dispatch (docs/BENCHMARKS.md roofline row 1: 34.9% of the
-    20,480-step headline launch) amortises to nothing.
-
-    Counter definitions (the lock in tests/test_fused_rollout.py computes
-    the same reductions from the trajectory kernel's outputs):
-      rewsum[p]  = sum over steps of rewards[p]
-      counts[0]  = episodes   = sum(done)
-      counts[1]  = collisions = sum(collision)
-      counts[2]  = wins1      = sum(done & winner == 1 & ~collision)
-      counts[3]  = wins2      = sum(done & winner == 2 & ~collision)
-    """
-    i_env = pl.program_id(0)
-    i = pl.program_id(1)
-
-    @pl.when(i == 0)
-    def _():
-        pos_s[:] = jnp.full((2, n), C.START_POINT, jnp.float32)
-        vel_s[:] = jnp.full((2, n), C.START_VEL, jnp.float32)
-        win_s[:] = jnp.zeros((1, n), jnp.int32)
-        t_s[:] = jnp.zeros((1, n), jnp.int32)
-        rewsum_ref[:] = jnp.zeros((2, n), jnp.float32)
-        counts_ref[:] = jnp.zeros((4, n), jnp.int32)
-
-    if use_prng:
-        pltpu.prng_seed(seed_ref[0] + i * pl.num_programs(0) + i_env)
-
-    rcfg = tuple(rewards_ref[k] for k in range(5))
-    pos, vel = pos_s[:], vel_s[:]
-    winner, tcnt = win_s[:][0], t_s[:][0]
-    rewsum = rewsum_ref[:]
-    counts = counts_ref[:]
-    for k in range(unroll):
-        if use_prng:
-            bits = pltpu.bitcast(pltpu.prng_random_bits((2, n)), jnp.uint32)
-            actions = (bits % jnp.uint32(C.NUM_ACTIONS + 1)).astype(jnp.int32) - 1
+            a1 = plgpu.load(actions_ref.at[t, 0, env], mask=live, other=0)
+            a2 = plgpu.load(actions_ref.at[t, 1, env], mask=live, other=0)
+        state, done, col, rew, obs = _env_step(state, a1, a2, rcfg, max_steps)
+        winner = state[4]
+        if counters:
+            acc = (acc[0] + rew[0], acc[1] + rew[1],
+                   acc[2] + done.astype(jnp.int32),
+                   acc[3] + col.astype(jnp.int32),
+                   acc[4] + (done & (winner == 1) & ~col).astype(jnp.int32),
+                   acc[5] + (done & (winner == 2) & ~col).astype(jnp.int32))
         else:
-            actions = actions_ref[k]
+            obs_ref, rew_ref, done_ref, win_ref, col_ref = out_refs
+            for k, v in enumerate(obs):
+                plgpu.store(obs_ref.at[t, k, env], v, mask=live)
+            for k, v in enumerate(rew):
+                plgpu.store(rew_ref.at[t, k, env], v, mask=live)
+            plgpu.store(done_ref.at[t, env], done.astype(jnp.int32), mask=live)
+            plgpu.store(win_ref.at[t, env], winner, mask=live)
+            plgpu.store(col_ref.at[t, env], col.astype(jnp.int32), mask=live)
+        return _reset_where(done, state), acc
 
-        pos, vel, winner, tcnt, done, col, rewards, _, _ = _env_step_math(
-            pos, vel, winner, tcnt,
-            jnp.zeros((n,), bool), actions, rcfg, seed_ref[1])
-
-        rewsum = rewsum + rewards
-        inc = jnp.stack([
-            done.astype(jnp.int32),
-            col.astype(jnp.int32),
-            (done & (winner == 1) & ~col).astype(jnp.int32),
-            (done & (winner == 2) & ~col).astype(jnp.int32),
-        ])
-        counts = counts + inc
-
-        reset = done[None, :]
-        pos = jnp.where(reset, C.START_POINT, pos)
-        vel = jnp.where(reset, C.START_VEL, vel)
-        winner = jnp.where(done, 0, winner)
-        tcnt = jnp.where(done, 0, tcnt)
-    pos_s[:] = pos
-    vel_s[:] = vel
-    win_s[:] = winner[None, :]
-    t_s[:] = tcnt[None, :]
-    rewsum_ref[:] = rewsum
-    counts_ref[:] = counts
+    _, acc = lax.fori_loop(0, num_steps, body, (state, acc0))
+    if counters:
+        rew_ref, cnt_ref = out_refs
+        for k in range(2):
+            plgpu.store(rew_ref.at[k, env], acc[k], mask=live)
+        for k in range(4):
+            plgpu.store(cnt_ref.at[k, env], acc[2 + k], mask=live)
 
 
-ENV_BLOCK = 8192  # lanes per env tile; bounds VMEM block sizes
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("num_steps", "num_envs", "use_prng",
-                                    "unroll"))
-def _call(rewards_vec, seed, actions, num_steps, num_envs, use_prng,
-          unroll=1):
-    n = min(num_envs, ENV_BLOCK)
-    assert num_envs % n == 0
-    assert num_steps % unroll == 0, "num_steps must be a multiple of unroll"
-    K = unroll
-    kernel = functools.partial(_kernel, n=n, use_prng=use_prng, unroll=K)
-    grid = (num_envs // n, num_steps // K)
-    if use_prng:
-        # The kernel never reads actions in PRNG mode; a 1-lane-row dummy
-        # avoids materialising a [T, 2, N] zeros array in HBM (640 MB at
-        # the 20,480-step headline launch; unbounded at counters-mode
-        # launch lengths).
-        actions_spec = pl.BlockSpec((1, 1, 128), lambda e, i: (0, 0, 0),
-                                    memory_space=pltpu.VMEM)
+@functools.partial(jax.jit, static_argnames=(
+    "num_steps", "num_envs", "max_steps", "use_seed", "counters",
+    "block_envs", "num_warps", "interpret"))
+def _call(rcfg, seed, actions, *, num_steps, num_envs, max_steps, use_seed,
+          counters, block_envs, num_warps, interpret):
+    T, N = num_steps, num_envs
+    if counters:
+        out_shape = (jax.ShapeDtypeStruct((2, N), jnp.float32),
+                     jax.ShapeDtypeStruct((4, N), jnp.int32))
     else:
-        actions_spec = pl.BlockSpec((K, 2, n), lambda e, i: (i, 0, e),
-                                    memory_space=pltpu.VMEM)
+        out_shape = (jax.ShapeDtypeStruct((T, 10, N), jnp.float32),
+                     jax.ShapeDtypeStruct((T, 2, N), jnp.float32),
+                     jax.ShapeDtypeStruct((T, N), jnp.int32),
+                     jax.ShapeDtypeStruct((T, N), jnp.int32),
+                     jax.ShapeDtypeStruct((T, N), jnp.int32))
+    kernel = functools.partial(
+        _kernel, num_envs=N, num_steps=T, block=block_envs,
+        max_steps=max_steps, use_seed=use_seed, counters=counters)
     out = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # rewards cfg [5]
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # seed [1]
-            actions_spec,
-        ],
-        out_specs=(
-            pl.BlockSpec((K, 10, n), lambda e, i: (i, 0, e), memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, 2, n), lambda e, i: (i, 0, e), memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, 1, n), lambda e, i: (i, 0, e), memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, 1, n), lambda e, i: (i, 0, e), memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, 1, n), lambda e, i: (i, 0, e), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((num_steps, 10, num_envs), jnp.float32),
-            jax.ShapeDtypeStruct((num_steps, 2, num_envs), jnp.float32),
-            jax.ShapeDtypeStruct((num_steps, 1, num_envs), jnp.int32),
-            jax.ShapeDtypeStruct((num_steps, 1, num_envs), jnp.int32),
-            jax.ShapeDtypeStruct((num_steps, 1, num_envs), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, n), jnp.float32),
-            pltpu.VMEM((2, n), jnp.float32),
-            pltpu.VMEM((1, n), jnp.int32),
-            pltpu.VMEM((1, n), jnp.int32),
-        ],
-    )(rewards_vec, seed, actions)
+        out_shape=out_shape,
+        grid=(pl.cdiv(N, block_envs),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="fused_rollout_counters" if counters else "fused_rollout",
+    )(rcfg, seed, actions)
+    if counters:
+        rewsum, counts = out
+        return {"reward_sum": rewsum, "episodes": counts[0],
+                "collisions": counts[1], "wins1": counts[2],
+                "wins2": counts[3]}
     obs, rewards, done, winner, col = out
-    return {
-        "obs": obs,                       # f32[T, 10, N]
-        "rewards": rewards,               # f32[T, 2, N]
-        "done": done[:, 0].astype(bool),  # bool[T, N]
-        "winner": winner[:, 0],           # i32[T, N]
-        "collision": col[:, 0].astype(bool),
-    }
+    return {"obs": obs, "rewards": rewards, "done": done.astype(bool),
+            "winner": winner, "collision": col.astype(bool)}
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("num_steps", "num_envs", "use_prng",
-                                    "unroll"))
-def _call_counters(rewards_vec, seed, actions, num_steps, num_envs, use_prng,
-                   unroll=1):
-    n = min(num_envs, ENV_BLOCK)
-    assert num_envs % n == 0
-    assert num_steps % unroll == 0, "num_steps must be a multiple of unroll"
-    K = unroll
-    kernel = functools.partial(_kernel_counters, n=n, use_prng=use_prng,
-                               unroll=K)
-    grid = (num_envs // n, num_steps // K)
-    if use_prng:
-        actions_spec = pl.BlockSpec((1, 1, 128), lambda e, i: (0, 0, 0),
-                                    memory_space=pltpu.VMEM)
-    else:
-        actions_spec = pl.BlockSpec((K, 2, n), lambda e, i: (i, 0, e),
-                                    memory_space=pltpu.VMEM)
-    rewsum, counts = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # rewards cfg [5]
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # seed [1]
-            actions_spec,
-        ],
-        out_specs=(
-            # Output block index is time-invariant, so the block stays
-            # VMEM-resident for a whole env tile's time sweep (the
-            # accumulator) and flushes to HBM once per tile.
-            pl.BlockSpec((2, n), lambda e, i: (0, e), memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, n), lambda e, i: (0, e), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((2, num_envs), jnp.float32),
-            jax.ShapeDtypeStruct((4, num_envs), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, n), jnp.float32),
-            pltpu.VMEM((2, n), jnp.float32),
-            pltpu.VMEM((1, n), jnp.int32),
-            pltpu.VMEM((1, n), jnp.int32),
-        ],
-    )(rewards_vec, seed, actions)
-    return {
-        "reward_sum": rewsum,       # f32[2, N]
-        "episodes": counts[0],      # i32[N]
-        "collisions": counts[1],    # i32[N]
-        "wins1": counts[2],         # i32[N]
-        "wins2": counts[3],         # i32[N]
-    }
+def _check_args(num_steps, num_envs, actions, seed, env_params):
+    if (actions is None) == (seed is None):
+        raise ValueError("pass exactly one of actions= and seed=")
+    if num_steps < 1 or num_envs < 1:
+        raise ValueError(f"need num_steps >= 1 and num_envs >= 1, got "
+                         f"{num_steps}, {num_envs}")
+    env_params = EnvParams() if env_params is None else env_params
+    if env_params.random_start:
+        raise ValueError("the rollout kernel has deterministic starts only; "
+                         "randomised starts run on core.vector.rollout")
+    if actions is not None:
+        actions = jnp.asarray(actions, jnp.int32)
+        if actions.shape != (num_steps, 2, num_envs):
+            raise ValueError(f"actions must be i32[{num_steps}, 2, "
+                             f"{num_envs}], got {actions.shape}")
+    return actions, env_params
+
+
+def _run(num_steps, num_envs, actions, seed, env_params, counters,
+         block_envs, num_warps, interpret):
+    actions, env_params = _check_args(num_steps, num_envs, actions, seed,
+                                      env_params)
+    if block_envs < 1 or block_envs & (block_envs - 1):
+        raise ValueError(f"block_envs must be a power of two, got "
+                         f"{block_envs}")
+    if not counters and num_steps * 10 * num_envs >= 2 ** 31:
+        # The kernel addresses the obs trajectory with int32 offsets.
+        raise ValueError(f"a {num_steps}-step trajectory of {num_envs} envs "
+                         "is too large for one launch; split the steps")
+    rcfg = jnp.asarray([env_params.r_first, env_params.r_second,
+                        env_params.r_collision, env_params.vel_penalty,
+                        env_params.time_penalty], jnp.float32)
+    use_seed = actions is None
+    if use_seed:
+        actions = jnp.zeros((1, 2, 1), jnp.int32)   # never read
+    seed = jnp.asarray([0 if seed is None else seed], jnp.int32)
+    return _call(rcfg, seed, actions, num_steps=num_steps, num_envs=num_envs,
+                 max_steps=env_params.max_steps, use_seed=use_seed,
+                 counters=counters, block_envs=block_envs,
+                 num_warps=num_warps, interpret=interpret)
 
 
 def fused_rollout(num_steps: int, num_envs: int, actions=None, seed=None,
-                  env_params=None, unroll: int = 1):
-    """Run T lockstep env steps for N envs in one kernel (see module doc).
+                  env_params: EnvParams | None = None, *,
+                  block_envs: int = BLOCK_ENVS, num_warps: int = NUM_WARPS,
+                  interpret: bool = False):
+    """Run ``num_steps`` auto-resetting steps of ``num_envs`` envs.
 
-    Exactly one of ``actions`` (i32[T, 2, N]) or ``seed`` (int) must be
-    given.  ``num_envs`` must be a multiple of 128 (lane width) and, above
-    ENV_BLOCK (8192), a multiple of ENV_BLOCK (the env-tile size).
-    ``unroll`` simulates that many env steps per grid iteration (T must
-    divide evenly); at large env counts it amortises the per-iteration
-    block turnaround (+9% at 65K envs), at small counts it is neutral.
-    Returns a dict of [T, ...]-stacked trajectories in env-last layout.
-
-    Seed-mode caveat: trajectories are a function of (seed, unroll, env
-    tiling), not of ``seed`` alone -- the kernel reseeds its PRNG per
-    grid iteration (seed + i*ntiles + i_env) and draws ``unroll`` times
-    per seed, so the same user seed yields different random actions at
-    different ``unroll``/tiling settings, and nearby seeds overlap
-    streams.  Fine for benchmarks/load generation; pass explicit
-    ``actions`` when reproducibility across configs matters (only
-    actions-mode equality is tested, tests/test_fused_rollout.py).
+    Exactly one of ``actions`` (i32[T, 2, N]) and ``seed`` (int) is given.
+    Returns ``{"obs": f32[T, 10, N], "rewards": f32[T, 2, N],
+    "done"/"collision": bool[T, N], "winner": i32[T, N]}`` -- the
+    pre-reset step outputs, as ``core.vector.autoreset_step`` returns them.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (tests).
     """
-    assert num_envs % 128 == 0, "num_envs must be a multiple of 128"
-    assert num_envs % min(num_envs, ENV_BLOCK) == 0, (
-        f"num_envs above {ENV_BLOCK} must be a multiple of {ENV_BLOCK}")
-    assert (actions is None) != (seed is None), "pass actions XOR seed"
-    if env_params is None:
-        from merging_gym_tpu.core.env import EnvParams
-        env_params = EnvParams()
-    assert not env_params.random_start, "fused path: deterministic starts only"
-    rewards_vec = jnp.asarray([
-        env_params.r_first, env_params.r_second, env_params.r_collision,
-        env_params.vel_penalty, env_params.time_penalty], jnp.float32)
-    use_prng = actions is None
-    if use_prng:
-        actions = jnp.zeros((1, 1, 128), jnp.int32)   # never read in-kernel
-        seed_arr = jnp.asarray([seed, env_params.max_steps], jnp.int32)
-    else:
-        actions = jnp.asarray(actions, jnp.int32)
-        seed_arr = jnp.asarray([0, env_params.max_steps], jnp.int32)
-    return _call(rewards_vec, seed_arr, actions, num_steps, num_envs,
-                 use_prng, unroll)
+    return _run(num_steps, num_envs, actions, seed, env_params, False,
+                block_envs, num_warps, interpret)
 
 
 def fused_rollout_counters(num_steps: int, num_envs: int, actions=None,
-                           seed=None, env_params=None, unroll: int = 1):
-    """Reduce-on-chip rollout: same env math and action stream as
-    ``fused_rollout`` but returns per-env outcome counters instead of
-    [T, ...] trajectories (see ``_kernel_counters``).  With no trajectory
-    stream, HBM capacity no longer caps the launch length, so the ~25 ms
-    per-launch dispatch can be amortised over millions of steps
-    (bench.py's counters headline uses 1M-step launches).
+                           seed=None, env_params: EnvParams | None = None, *,
+                           block_envs: int = BLOCK_ENVS,
+                           num_warps: int = NUM_WARPS,
+                           interpret: bool = False):
+    """Same rollout as ``fused_rollout``, reduced to per-env counters.
 
-    Same determinism caveat as ``fused_rollout`` seed mode: the PRNG
-    action stream is a function of (seed, unroll, env tiling).  At
-    matched settings both kernels draw identical streams, which is the
-    TPU equality lock in tests/test_fused_rollout_counters.py.
-
-    Returns ``{"reward_sum": f32[2, N], "episodes"/"collisions"/
-    "wins1"/"wins2": i32[N]}``.
+    Returns ``{"reward_sum": f32[2, N], "episodes", "collisions", "wins1",
+    "wins2": i32[N]}`` where, summed over steps, episodes counts ``done``,
+    collisions counts ``collision``, and winsP counts
+    ``done & winner == P & ~collision``.
     """
-    assert num_envs % 128 == 0, "num_envs must be a multiple of 128"
-    assert num_envs % min(num_envs, ENV_BLOCK) == 0, (
-        f"num_envs above {ENV_BLOCK} must be a multiple of {ENV_BLOCK}")
-    assert (actions is None) != (seed is None), "pass actions XOR seed"
-    if env_params is None:
-        from merging_gym_tpu.core.env import EnvParams
-        env_params = EnvParams()
-    assert not env_params.random_start, "fused path: deterministic starts only"
-    rewards_vec = jnp.asarray([
-        env_params.r_first, env_params.r_second, env_params.r_collision,
-        env_params.vel_penalty, env_params.time_penalty], jnp.float32)
-    use_prng = actions is None
-    if use_prng:
-        actions = jnp.zeros((1, 1, 128), jnp.int32)   # never read in-kernel
-        seed_arr = jnp.asarray([seed, env_params.max_steps], jnp.int32)
-    else:
-        actions = jnp.asarray(actions, jnp.int32)
-        seed_arr = jnp.asarray([0, env_params.max_steps], jnp.int32)
-    return _call_counters(rewards_vec, seed_arr, actions, num_steps,
-                          num_envs, use_prng, unroll)
+    return _run(num_steps, num_envs, actions, seed, env_params, True,
+                block_envs, num_warps, interpret)
+
+
+# --------------------------------------------------------------------------
+# Plain XLA reference: core.vector's auto-reset step under lax.scan, fed the
+# same action streams.  Trajectories keep core.vector's own env-first
+# layout (obs f32[T, N, 10], rewards f32[T, N, 2]); counters are the
+# kernel's ([2, N] and [N]).
+# --------------------------------------------------------------------------
+
+def _policy(actions, seed, num_envs):
+    env = jnp.arange(num_envs, dtype=jnp.int32)
+    key = None if seed is None else counter_rng.env_key(seed, env)
+
+    def policy(t, obs, rng):
+        del obs, rng
+        if key is None:
+            a = actions[t].T
+        else:
+            a = jnp.stack(counter_rng.step_actions(key, t), axis=-1)
+        return t + 1, a
+
+    return policy
+
+
+@functools.partial(jax.jit, static_argnames=("num_steps", "num_envs",
+                                             "counters"))
+def _reference(actions, seed, env_params, *, num_steps, num_envs, counters):
+    policy = _policy(actions, seed, num_envs)
+    state = reset_batch(env_params, jax.random.key(0), num_envs)
+    if not counters:
+        _, ts = rollout(env_params, state, policy, jnp.int32(0),
+                        jax.random.key(0), num_steps)
+        return {k: getattr(ts, k) for k in TRAJ_KEYS}
+
+    def body(carry, _):
+        state, t, rew, cnt = carry
+        t, a = policy(t, None, None)
+        state, ts = autoreset_step(env_params, state, a, jax.random.key(0))
+        won = ts.done & ~ts.collision
+        inc = jnp.stack([ts.done, ts.collision, won & (ts.winner == 1),
+                         won & (ts.winner == 2)]).astype(jnp.int32)
+        return (state, t, rew + ts.rewards.T, cnt + inc), None
+
+    zeros = (jnp.zeros((2, num_envs), jnp.float32),
+             jnp.zeros((4, num_envs), jnp.int32))
+    (_, _, rew, cnt), _ = lax.scan(body, (state, jnp.int32(0), *zeros), None,
+                                   length=num_steps)
+    return {"reward_sum": rew, "episodes": cnt[0], "collisions": cnt[1],
+            "wins1": cnt[2], "wins2": cnt[3]}
+
+
+def reference_rollout(num_steps: int, num_envs: int, actions=None, seed=None,
+                      env_params: EnvParams | None = None):
+    """``fused_rollout``'s result computed by ``core.vector.rollout``.
+
+    ``obs`` and ``rewards`` are env-first (f32[T, N, 10], f32[T, N, 2]),
+    the XLA rollout's own layout; the other keys match the kernel's."""
+    actions, env_params = _check_args(num_steps, num_envs, actions, seed,
+                                      env_params)
+    return _reference(actions, seed, env_params, num_steps=num_steps,
+                      num_envs=num_envs, counters=False)
+
+
+def reference_rollout_counters(num_steps: int, num_envs: int, actions=None,
+                               seed=None, env_params: EnvParams | None = None):
+    """``fused_rollout_counters``' result computed by the plain XLA scan."""
+    actions, env_params = _check_args(num_steps, num_envs, actions, seed,
+                                      env_params)
+    return _reference(actions, seed, env_params, num_steps=num_steps,
+                      num_envs=num_envs, counters=True)

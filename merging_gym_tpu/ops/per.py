@@ -5,7 +5,7 @@ array segment trees (ranbowdqn.py:130-262) but never instantiates it
 (main() uses the uniform buffer, ranbowdqn.py:647); SURVEY.md directs
 this build to make it first-class.
 
-TPU-native design: no pointer tree.  Priorities live in a flat f32
+On-device design: no pointer tree.  Priorities live in a flat f32
 array; proportional sampling is stratified inverse-CDF over a cumsum
 (``searchsorted``) -- a log-depth scan plus a vectorised binary search,
 which beats a sequential tree descent on a vector machine by orders of
@@ -24,7 +24,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 from merging_gym_tpu.ops import replay as rp
 

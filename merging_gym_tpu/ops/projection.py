@@ -1,6 +1,6 @@
 """C51 categorical Bellman projection.
 
-TPU-native port of the reference ``projection_distribution``
+On-device port of the reference ``projection_distribution``
 (scripts/ranbowdqn.py:554-582): the torch ``index_add_`` scatter over
 ``(batch*atoms)`` becomes a pair of ``.at[].add`` scatters under jit.
 

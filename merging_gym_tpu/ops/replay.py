@@ -20,7 +20,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 
 @struct.dataclass

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from merging_gym_tpu.utils import struct
 
 
 def _levels(capacity: int) -> int:

@@ -4,8 +4,8 @@ The reference has no distributed backend at all (SURVEY.md section 2.6);
 here the scaling axes are first-class: a named ``jax.sharding.Mesh`` with
 a ``data`` axis (env batch + learner batch, the dominant axis for this
 workload) and a ``model`` axis (tensor-parallel hidden dims).  Collectives
-ride ICI via XLA (psum/all_gather inside jit/shard_map); multi-host runs
-use ``jax.distributed.initialize`` with the same SPMD program per host.
+are XLA's (psum/all_gather inside jit/shard_map); multi-host runs use
+``jax.distributed.initialize`` with the same SPMD program per host.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Multi-host / multi-slice process coordination.
 
 The reference is strictly single-process (SURVEY.md section 2.6).  The
-TPU-native scaling story across hosts of a pod slice is: every host runs
-the *same* SPMD program (parallel.spmd) over the global mesh;
-``jax.distributed.initialize`` wires the hosts together over DCN, after
-which ``jax.devices()`` is the global device list and the shard_map
-collectives ride ICI exactly as in the single-host case.
+scaling story across hosts is: every host runs the *same* SPMD program
+(parallel.spmd) over the global mesh; ``jax.distributed.initialize``
+wires the hosts together over the network, after which ``jax.devices()``
+is the global device list and the shard_map collectives run exactly as
+in the single-host case.
 
 Nothing else in the framework changes per host -- env shards, replay
 shards and metrics psum are already expressed over the ``data`` axis of
@@ -26,9 +26,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Wire this process into the multi-host run.
 
-    On TPU pods with standard metadata, plain ``initialize()`` is enough;
-    explicit args support generic clusters.  Safe to call once per
-    process, before the first backend use.
+    Pass the coordinator's ``host:port``, the process count and this
+    process's index (a cluster manager that JAX detects can supply them
+    instead).  Call once per process, before the first backend use.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -1,9 +1,9 @@
 """SPMD distributed DQN training: explicit shard_map + XLA collectives.
 
-The TPU-native answer to "the reference has no distributed backend"
-(SURVEY.md sections 2.6, 5): one program, every device running it on its
-shard of the work, communicating over ICI with explicit collectives --
-no parameter server, no NCCL analog, no host in the loop.
+The answer to "the reference has no distributed backend" (SURVEY.md
+sections 2.6, 5): one program, every device running it on its shard of
+the work, communicating with explicit collectives that XLA hands to NCCL
+over NVLink -- no parameter server, no host in the loop.
 
 Layout on a ``(data, model)`` mesh:
 
@@ -14,8 +14,8 @@ Layout on a ``(data, model)`` mesh:
   params bitwise-replicated.
 * **tensor parallelism** -- the Q-net's hidden layers are sharded on
   ``model``: fc0 column-parallel, fc1 row-parallel with one
-  ``psum("model")`` on its output partial sums (Megatron-style, sized to
-  ride ICI), fc2 replicated.  Overkill for a 200-unit MLP but the real
+  ``psum("model")`` on its output partial sums (Megatron-style), fc2
+  replicated.  Overkill for a 200-unit MLP but the real
   mechanism, so the same code scales to wide nets.
 * pipeline / sequence / expert parallelism are structurally n/a for a
   3-layer MLP on 10-float observations (SURVEY.md section 5, long-context
@@ -28,7 +28,7 @@ shared key folded with the device's ``data`` coordinate, so a run on an
 
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import partial
 from typing import Any
 
 import jax
@@ -159,8 +159,8 @@ def _device_train_step(cfg: D.DQNConfig, env_params: EnvParams,
     }
     replay = rp.add_batch(carry.replay, items, store_mask)
 
-    def do_learn(dqn):
-        batch, _ = rp.sample(replay, k_sample, cfg.batch_size)
+    def learn_one(dqn, k):
+        batch, _ = rp.sample(replay, k, cfg.batch_size)
         sync = dqn.learn_counter % cfg.target_sync == 0
         target_params = jax.tree.map(
             lambda e, t: jnp.where(sync, e, t), dqn.params, dqn.target_params)
@@ -174,7 +174,13 @@ def _device_train_step(cfg: D.DQNConfig, env_params: EnvParams,
         return D.DQNState(params=params, target_params=target_params,
                           opt_state=opt_state,
                           learn_counter=dqn.learn_counter + 1,
-                          last_loss=loss.astype(jnp.float32))
+                          last_loss=loss.astype(jnp.float32)), None
+
+    def do_learn(dqn):
+        # Same key schedule as agents.dqn.train_step, so a one-device
+        # mesh reproduces the single-device trainer.
+        keys = jax.random.split(k_sample, cfg.learns_per_step)
+        return jax.lax.scan(learn_one, dqn, keys)[0]
 
     # All devices agree on the gate: cursors may differ per device (masked
     # stores), so take the global minimum fill.
@@ -209,6 +215,24 @@ def _device_train_step(cfg: D.DQNConfig, env_params: EnvParams,
 # ---------------------------------------------------------------------------
 # Mesh-level entry points
 # ---------------------------------------------------------------------------
+
+def _place(build, key, specs_of, mesh: Mesh):
+    """``build(key)`` laid out on ``mesh`` by the PartitionSpecs that
+    ``specs_of(carry)`` gives.
+
+    On a multi-process global mesh (examples/multiprocess_dryrun.py) host
+    data cannot be device_put onto non-addressable devices; building the
+    carry INSIDE jit with out_shardings places every process's local
+    shards of the same deterministic computation.
+    """
+    shardings = jax.tree.map(
+        lambda s: jax.sharding.NamedSharding(mesh, s),
+        specs_of(jax.eval_shape(build, key)),
+        is_leaf=lambda x: isinstance(x, P))
+    if jax.process_count() > 1:
+        return jax.jit(build, out_shardings=shardings)(key)
+    return jax.device_put(build(key), shardings)
+
 
 def carry_pspecs(cfg: D.DQNConfig, carry: D.TrainCarry):
     """PartitionSpecs for the train carry on a (data, model) mesh."""
@@ -265,17 +289,7 @@ def spmd_train_init(key, cfg: D.DQNConfig, env_params: EnvParams,
                            D.transition_example(cfg)), dp)
         return carry.replace(replay=replay)
 
-    carry = jax.eval_shape(build, key)
-    shardings = jax.tree.map(
-        lambda s: jax.sharding.NamedSharding(mesh, s),
-        carry_pspecs(cfg, carry), is_leaf=lambda x: isinstance(x, P))
-    if jax.process_count() > 1:
-        # Multi-process global mesh (examples/multiprocess_dryrun.py):
-        # host data cannot be device_put onto non-addressable devices;
-        # building the carry INSIDE jit with out_shardings places every
-        # process's local shards of the same deterministic computation.
-        return jax.jit(build, out_shardings=shardings)(key)
-    return jax.device_put(build(key), shardings)
+    return _place(build, key, partial(carry_pspecs, cfg), mesh)
 
 
 @partial(jax.jit, static_argnums=(0, 3, 4))
@@ -364,21 +378,20 @@ def spmd_rainbow_init(key, cfg, env_params: EnvParams, num_envs: int,
     dp = mesh.shape["data"]
     assert num_envs % dp == 0
     assert cfg.pmean_axis == "data", "set RainbowConfig(pmean_axis='data')"
-    carry = R.rainbow_train_init(key, cfg, env_params, num_envs)
-    if cfg.per:
-        from merging_gym_tpu.ops import per as per_ops
-        replay = per_ops.per_init(cfg.memory_capacity * dp,
-                                  D.transition_example(D.DQNConfig()),
-                                  cfg.per_alpha)
-    else:
-        replay = rp.replay_init(cfg.memory_capacity * dp,
-                                D.transition_example(D.DQNConfig()))
-    carry = carry.replace(replay=_per_device_cursor(replay, dp))
-    specs = rainbow_carry_pspecs(carry)
-    shardings = jax.tree.map(
-        lambda s: jax.sharding.NamedSharding(mesh, s), specs,
-        is_leaf=lambda x: isinstance(x, P))
-    return jax.device_put(carry, shardings)
+
+    def build(k):
+        carry = R.rainbow_train_init(k, cfg, env_params, num_envs)
+        if cfg.per:
+            from merging_gym_tpu.ops import per as per_ops
+            replay = per_ops.per_init(cfg.memory_capacity * dp,
+                                      D.transition_example(D.DQNConfig()),
+                                      cfg.per_alpha)
+        else:
+            replay = rp.replay_init(cfg.memory_capacity * dp,
+                                    D.transition_example(D.DQNConfig()))
+        return carry.replace(replay=_per_device_cursor(replay, dp))
+
+    return _place(build, key, rainbow_carry_pspecs, mesh)
 
 
 @partial(jax.jit, static_argnums=(0, 3, 4))
@@ -448,20 +461,20 @@ def spmd_hdqn_init(key, cfg, env_params: EnvParams, num_envs: int,
     dp = mesh.shape["data"]
     assert num_envs % dp == 0
     assert cfg.pmean_axis == "data", "set HDQNConfig(pmean_axis='data')"
-    carry = H.hdqn_init(key, cfg, env_params, num_envs, opp_upper, opp_lower)
-    carry = carry.replace(
-        upper_replay=_per_device_cursor(
-            rp.replay_init(cfg.goal_memory_capacity * dp,
-                           D.transition_example(cfg.upper_cfg())), dp),
-        lower_replay=_per_device_cursor(
-            rp.replay_init(cfg.memory_capacity * dp,
-                           D.transition_example(cfg.lower_cfg())), dp),
-    )
-    specs = hdqn_carry_pspecs(carry)
-    shardings = jax.tree.map(
-        lambda s: jax.sharding.NamedSharding(mesh, s), specs,
-        is_leaf=lambda x: isinstance(x, P))
-    return jax.device_put(carry, shardings)
+
+    def build(k):
+        carry = H.hdqn_init(k, cfg, env_params, num_envs, opp_upper,
+                            opp_lower)
+        return carry.replace(
+            upper_replay=_per_device_cursor(
+                rp.replay_init(cfg.goal_memory_capacity * dp,
+                               D.transition_example(cfg.upper_cfg())), dp),
+            lower_replay=_per_device_cursor(
+                rp.replay_init(cfg.memory_capacity * dp,
+                               D.transition_example(cfg.lower_cfg())), dp),
+        )
+
+    return _place(build, key, hdqn_carry_pspecs, mesh)
 
 
 @partial(jax.jit, static_argnums=(0, 3, 4))
@@ -541,17 +554,16 @@ def spmd_drqn_init(key, cfg, env_params: EnvParams, num_envs: int,
         f"{num_envs // dp}")
     init_cfg = (cfg if cfg.memory_capacity >= num_envs
                 else cfg.replace(memory_capacity=num_envs))
-    carry = DR.drqn_train_init(key, init_cfg, env_params, num_envs,
-                               opp_params)
-    carry = carry.replace(
-        replay=_per_device_cursor(
-            rp.replay_init(cfg.memory_capacity * dp,
-                           DR._window_example(cfg)), dp))
-    specs = drqn_carry_pspecs(carry)
-    shardings = jax.tree.map(
-        lambda s: jax.sharding.NamedSharding(mesh, s), specs,
-        is_leaf=lambda x: isinstance(x, P))
-    return jax.device_put(carry, shardings)
+
+    def build(k):
+        carry = DR.drqn_train_init(k, init_cfg, env_params, num_envs,
+                                   opp_params)
+        return carry.replace(
+            replay=_per_device_cursor(
+                rp.replay_init(cfg.memory_capacity * dp,
+                               DR._window_example(cfg)), dp))
+
+    return _place(build, key, drqn_carry_pspecs, mesh)
 
 
 @partial(jax.jit, static_argnums=(0, 3, 4))
@@ -586,576 +598,3 @@ def spmd_drqn_chunk(mesh: Mesh, cfg, env_params: EnvParams, carry,
                     num_steps: int):
     """Distributed recurrent DQN over the ``data`` axis."""
     return _spmd_drqn_chunk(cfg, env_params, carry, num_steps, mesh)
-
-
-# ---------------------------------------------------------------------------
-# Distributed single-kernel (Pallas) DQN trainer: local-SGD over the mesh
-# ---------------------------------------------------------------------------
-# The fused trainer (ops.fused_trainer) keeps its entire state in VMEM for
-# a whole chunk, so per-STEP gradient psum -- the XLA trainers' pattern --
-# is structurally unavailable (the kernel never leaves the core).  The
-# TPU-idiomatic way to scale it is chunk-wise local SGD: every device runs
-# the full kernel on its env shard with its own sample streams, and
-# params, target params and Adam moments are pmean-averaged over ICI at
-# chunk boundaries.  At the fused trainer's chunk sizes (1K-16K steps per
-# launch) the averaging interval matches the launch cadence, so the
-# collective cost is one small all-reduce per ~10^7 env-steps.  Metric
-# lanes stay device-local and are summed on the host like the single-chip
-# path.
-
-def _check_fused_launch(num_steps, env_params, greedy):
-    """Host-API guards shared by the SPMD fused chunk wrappers (the same
-    contract the single-chip fused_*_chunk functions enforce): a
-    zero-iteration grid would skip the kernels' i==0 state copy and
-    return uninitialized outputs; random starts need the on-chip PRNG,
-    which greedy (deterministic e2e) mode skips."""
-    if num_steps < 1:
-        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
-    if env_params.random_start and greedy:
-        raise ValueError("random starts need the on-chip PRNG, which "
-                         "greedy mode skips; drop one of the two")
-
-
-def _global_put(x, sharding):
-    """device_put that also works on multi-process global meshes, where
-    host data cannot be placed onto non-addressable devices: the value
-    is emitted as a jit constant with out_shardings instead (identical
-    on every process -- all carry arrays are deterministic functions of
-    the shared key)."""
-    if jax.process_count() == 1:
-        return jax.device_put(x, sharding)
-    return jax.jit(lambda: x, out_shardings=sharding)()
-
-
-def _dev_seed_block(seed, idx, ndev, num_steps):
-    """Per-device PRNG seed block base: (seed*ndev + idx) * num_steps in
-    uint32 (wrapping is DEFINED and harmless for PRNG seeding: blocks
-    tile the integers without overlap until 2**32 / (ndev*num_steps)
-    chunk seeds, then reuse long-exhausted blocks)."""
-    u = (seed.astype(jnp.uint32) * jnp.uint32(ndev) + idx.astype(jnp.uint32)
-         ) * jnp.uint32(num_steps)
-    return jax.lax.bitcast_convert_type(u, jnp.int32)
-
-
-def spmd_fused_dqn_init(key, cfg: D.DQNConfig, env_params: EnvParams,
-                        num_envs: int, mesh: Mesh, opp_params=None,
-                        learn_batch=None, learn_rounds=1):
-    """Sharded fused-trainer carry: env rows + replay ring split over the
-    ``data`` axis (lane dimension), learner state replicated.
-
-    ``num_envs`` is GLOBAL; each device runs num_envs/ndev lanes, so all
-    of ops.fused_trainer's size rules apply per device (lanes multiple of
-    128, ``learn_batch`` a per-device batch dividing the local lane
-    count).
-    """
-    from jax.sharding import NamedSharding
-
-    from merging_gym_tpu.ops import fused_trainer as FT
-
-    ndev = mesh.shape["data"]
-    if num_envs % ndev != 0:
-        raise ValueError(f"num_envs {num_envs} must divide over {ndev} devices")
-    if cfg.memory_capacity % ndev != 0:
-        raise ValueError(f"memory_capacity {cfg.memory_capacity} must divide "
-                         f"over {ndev} devices (it is a GLOBAL transition "
-                         "count, split into per-device rings)")
-    n_local = num_envs // ndev
-    # Validate against per-device sizes, then widen the env/ring arrays to
-    # the global lane count (identical deterministic starts per lane).
-    carry = FT.fused_dqn_init(key, cfg.replace(
-        memory_capacity=cfg.memory_capacity // ndev), env_params, n_local,
-        opp_params, learn_batch=learn_batch, learn_rounds=learn_rounds)
-    env = jnp.tile(carry["env"], (1, ndev))
-    ring = jnp.zeros((carry["ring"].shape[0], num_envs), jnp.float32)
-    lanes = NamedSharding(mesh, P(None, "data"))
-    rep = NamedSharding(mesh, P())
-    carry["env"] = _global_put(env, lanes)
-    carry["ring"] = _global_put(ring, lanes)
-    for k in ("p", "tp", "m", "v", "opp"):
-        carry[k] = tuple(_global_put(a, rep) for a in carry[k])
-    carry["n"] = num_envs
-    carry["n_local"] = n_local
-    return carry
-
-
-@lru_cache(maxsize=None)
-def _fused_dqn_sharded(mesh: Mesh, num_steps: int, n_local: int, R: int,
-                       B: int, K: int, opp: int, p_greedy: float,
-                       num_actions: int, gamma: float, lr: float,
-                       target_sync: int, mask_terminal: bool, greedy: bool,
-                       random_start: bool, interpret: bool,
-                       compute_dtype: str = "float32"):
-    """Build (and cache) the jitted shard_map for one fused-DQN config.
-
-    All per-chunk values -- the chunk seed and the warm/learns/ring-base
-    counters -- enter as a traced i32 vector (``scal``), mirroring the
-    single-chip path's SMEM cfg vector, so consecutive chunk launches hit
-    the compile cache instead of re-lowering the Mosaic kernel (~2 min a
-    launch on the real chip).
-    """
-    from merging_gym_tpu.ops import fused_trainer as FT
-
-    ndev = mesh.shape["data"]
-    W = B // K
-
-    def per_device(scal, rewards, p, tp, m, v, opp_p, env, ring):
-        idx = jax.lax.axis_index("data")
-        seed = scal[0]
-        # Per-step on-chip PRNG seeds are cfg[0] + i for i < num_steps, so
-        # devices need a stride >= num_steps to keep exploration streams
-        # disjoint within a chunk AND across consecutive chunk seeds:
-        # blocks [(seed*ndev + idx)*num_steps, ... + num_steps) tile the
-        # integers without overlap (uint32-wrapping, see _dev_seed_block).
-        dev_seed = _dev_seed_block(seed, idx, ndev, num_steps)
-        kd = jax.random.fold_in(jax.random.key(seed ^ 0x5EED), idx)
-        k_r, k_c = jax.random.split(kd)
-        rounds = jax.random.randint(k_r, (num_steps * K,), 0, R, jnp.int32)
-        cols = jax.random.randint(k_c, (num_steps * K,), 0, n_local // W,
-                                  jnp.int32)
-        cfgv = jnp.stack([dev_seed, scal[1], scal[2], scal[3], scal[4]])
-        arrays = tuple(list(p) + list(tp) + list(m) + list(v) + list(opp_p)
-                       + [env, ring])
-        out = FT._call(cfgv, rewards, rounds, cols, arrays, num_steps,
-                       n_local, R, B, K, opp, p_greedy,
-                       num_actions, gamma, lr, target_sync, mask_terminal,
-                       greedy, random_start=random_start,
-                       interpret=interpret, compute_dtype=compute_dtype)
-        po, tpo, mo, vo = out[0:6], out[6:12], out[12:18], out[18:24]
-        env_o, ring_o, met_o, loss_o = out[24], out[25], out[26], out[27]
-        # Chunk-boundary local-SGD averaging over ICI; metric sums are
-        # psum'd so the host reads a replicated [4] vector (required on
-        # multi-process meshes, where lane-sharded arrays are not host
-        # readable).
-        avg = lambda t: tuple(jax.lax.pmean(a, "data") for a in t)
-        loss = jax.lax.pmean(loss_o[0, 0], "data")
-        met = jax.lax.psum(jnp.sum(met_o, axis=1), "data")
-        return (avg(po), avg(tpo), avg(mo), avg(vo), env_o, ring_o, met,
-                loss)
-
-    rep6 = tuple(P() for _ in range(6))
-    lanes = P(None, "data")
-    return jax.jit(jax.shard_map(
-        per_device, mesh=mesh,
-        in_specs=(P(), P(), rep6, rep6, rep6, rep6, rep6, lanes, lanes),
-        out_specs=(rep6, rep6, rep6, rep6, lanes, lanes, P(), P()),
-        check_vma=False,
-    ))
-
-
-def spmd_fused_dqn_chunk(mesh: Mesh, cfg: D.DQNConfig, env_params: EnvParams,
-                         carry, num_steps: int, seed: int, *, greedy=False):
-    """One fused-kernel launch per device + chunk-boundary averaging."""
-    from merging_gym_tpu.ops import fused_trainer as FT
-
-    _check_fused_launch(num_steps, env_params, greedy)
-    R, B, K = carry["R"], carry["B"], carry.get("K", 1)
-    fn = _fused_dqn_sharded(mesh, num_steps, carry["n_local"], R, B, K,
-                            cfg.opponent, FT._phi(cfg.epsilon),
-                            cfg.num_actions, float(cfg.gamma), float(cfg.lr),
-                            int(cfg.target_sync), bool(cfg.mask_terminal),
-                            bool(greedy), bool(env_params.random_start),
-                            FT._interpret_flag(),
-                            str(getattr(cfg, "compute_dtype", "float32")))
-    scal = jnp.asarray([seed, env_params.max_steps, carry["warm"],
-                        carry["learns"], carry.get("steps", 0) % R],
-                       jnp.int32)
-    out = fn(scal, FT.rewards_cfg(env_params), carry["p"], carry["tp"],
-             carry["m"], carry["v"], carry["opp"], carry["env"],
-             carry["ring"])
-    p, tp, m, v, env, ring, met, loss = out
-    import numpy as np
-    flat = list(p) + list(tp) + list(m) + list(v) + [env, ring]
-    return FT.apply_chunk(carry, flat, num_steps, np.asarray(met),
-                          float(np.asarray(loss)))
-
-
-def spmd_fused_hdqn_init(key, cfg, env_params: EnvParams, num_envs: int,
-                         mesh: Mesh, learn_batch=None):
-    """Sharded fused-hdqn carry (cf. spmd_fused_dqn_init): state rows +
-    both replay rings lane-sharded over ``data``, learner state
-    replicated.  Capacities are GLOBAL transition counts."""
-    from jax.sharding import NamedSharding
-
-    from merging_gym_tpu.ops import fused_hdqn as FH
-
-    ndev = mesh.shape["data"]
-    if num_envs % ndev != 0:
-        raise ValueError(f"num_envs {num_envs} must divide over {ndev} devices")
-    for name, cap in (("memory_capacity", cfg.memory_capacity),
-                      ("goal_memory_capacity", cfg.goal_memory_capacity)):
-        if cap % ndev != 0:
-            raise ValueError(f"{name} {cap} must divide over {ndev} devices")
-    n_local = num_envs // ndev
-    carry = FH.fused_hdqn_init(
-        key, cfg.replace(memory_capacity=cfg.memory_capacity // ndev,
-                         goal_memory_capacity=cfg.goal_memory_capacity // ndev),
-        env_params, n_local, learn_batch=learn_batch)
-    lanes = NamedSharding(mesh, P(None, "data"))
-    rep = NamedSharding(mesh, P())
-    carry["state"] = _global_put(jnp.tile(carry["state"], (1, ndev)), lanes)
-    carry["lo_ring"] = _global_put(
-        jnp.zeros((carry["lo_ring"].shape[0], num_envs), jnp.float32), lanes)
-    carry["up_ring"] = _global_put(
-        jnp.zeros((carry["up_ring"].shape[0], num_envs), jnp.float32), lanes)
-    for k in ("u_p", "u_tp", "u_m", "u_v", "l_p", "l_tp", "l_m", "l_v",
-              "opp_u", "opp_l"):
-        carry[k] = tuple(_global_put(a, rep) for a in carry[k])
-    carry["n"] = num_envs
-    carry["n_local"] = n_local
-    return carry
-
-
-@lru_cache(maxsize=None)
-def _fused_hdqn_sharded(mesh: Mesh, num_steps: int, n_local: int, R_lo: int,
-                        R_up: int, B: int, opp: int, p_greedy: float,
-                        num_actions: int, num_goals: int, gamma: float,
-                        lr: float, target_sync: int, mask_terminal: bool,
-                        greedy: bool, random_start: bool, interpret: bool):
-    """Jitted shard_map for one fused-HDQN config (cf. _fused_dqn_sharded):
-    per-chunk seed and warm/learn/base counters are traced (``scal``), so
-    repeated chunk launches reuse one Mosaic compilation."""
-    from merging_gym_tpu.ops import fused_hdqn as FH
-    from merging_gym_tpu.ops import fused_trainer as FT
-
-    ndev = mesh.shape["data"]
-
-    def per_device(scal, rewards, u6x4, l6x4, opp_u, opp_l, state, lo_ring,
-                   up_ring):
-        idx = jax.lax.axis_index("data")
-        seed = scal[0]
-        dev_seed = _dev_seed_block(seed, idx, ndev, num_steps)
-        kd = jax.random.fold_in(jax.random.key(seed ^ 0x4D0), idx)
-        k1, k2, k3 = jax.random.split(kd, 3)
-        lo_rounds = jax.random.randint(k1, (num_steps,), 0, R_lo, jnp.int32)
-        up_rounds = jax.random.randint(k2, (num_steps,), 0, R_up, jnp.int32)
-        cols = jax.random.randint(k3, (2 * num_steps,), 0, n_local // B,
-                                  jnp.int32)
-        cfgv = jnp.stack([dev_seed, scal[1], scal[2], scal[3], scal[4],
-                          scal[5]])
-        arrays = tuple(sum((list(g) for g in u6x4 + l6x4), [])
-                       + list(opp_u) + list(opp_l)
-                       + [state, lo_ring, up_ring])
-        out = FH._call(cfgv, rewards, lo_rounds, up_rounds, cols,
-                       arrays, num_steps, n_local, R_lo, R_up, B, opp,
-                       p_greedy, num_actions, num_goals,
-                       gamma, lr, target_sync,
-                       mask_terminal, greedy, random_start=random_start,
-                       interpret=interpret)
-        avg = lambda t: tuple(jax.lax.pmean(a, "data") for a in t)
-        groups = tuple(avg(tuple(out[k * 6:(k + 1) * 6])) for k in range(8))
-        loss = jax.lax.pmean(out[52][0, 0], "data")
-        met = jax.lax.psum(jnp.sum(out[51], axis=1), "data")
-        return groups, out[48], out[49], out[50], met, loss
-
-    rep6 = tuple(P() for _ in range(6))
-    lanes = P(None, "data")
-    return jax.jit(jax.shard_map(
-        per_device, mesh=mesh,
-        in_specs=(P(), P(), (rep6,) * 4, (rep6,) * 4, rep6, rep6, lanes,
-                  lanes, lanes),
-        out_specs=((rep6,) * 8, lanes, lanes, lanes, P(), P()),
-        check_vma=False,
-    ))
-
-
-def spmd_fused_hdqn_chunk(mesh: Mesh, cfg, env_params: EnvParams, carry,
-                          num_steps: int, seed: int, *, greedy=False):
-    """One fused-hdqn launch per device + chunk-boundary local-SGD pmean
-    of both learners' params/moments over ICI."""
-    from merging_gym_tpu.ops import fused_trainer as FT
-
-    _check_fused_launch(num_steps, env_params, greedy)
-    R_lo, R_up = carry["R_lo"], carry["R_up"]
-    fn = _fused_hdqn_sharded(mesh, num_steps, carry["n_local"], R_lo, R_up,
-                             carry.get("B", carry["n_local"]),
-                             cfg.opponent, FT._phi(cfg.epsilon),
-                             cfg.num_actions, cfg.num_goals,
-                             float(cfg.gamma), float(cfg.lr),
-                             int(cfg.target_sync), bool(cfg.mask_terminal),
-                             bool(greedy), bool(env_params.random_start),
-                             FT._interpret_flag())
-    from merging_gym_tpu.ops.fused_hdqn import hdqn_launch_cfg
-    scal = hdqn_launch_cfg(carry, env_params, seed)
-    u6x4 = tuple(carry[k] for k in ("u_p", "u_tp", "u_m", "u_v"))
-    l6x4 = tuple(carry[k] for k in ("l_p", "l_tp", "l_m", "l_v"))
-    out = fn(scal, FT.rewards_cfg(env_params), u6x4, l6x4, carry["opp_u"],
-             carry["opp_l"], carry["state"], carry["lo_ring"],
-             carry["up_ring"])
-    groups, state, lo_ring, up_ring, met, loss = out
-    import numpy as np
-    from merging_gym_tpu.ops.fused_hdqn import apply_hdqn_chunk
-    return apply_hdqn_chunk(carry, groups, state, lo_ring, up_ring,
-                            num_steps, np.asarray(met),
-                            float(np.asarray(loss)))
-
-
-def spmd_fused_rainbow_init(key, cfg, env_params: EnvParams, num_envs: int,
-                            mesh: Mesh, opp_params=None, learn_batch=None):
-    """Sharded fused-Rainbow carry (cf. spmd_fused_dqn_init): env rows +
-    ring lane-sharded over ``data``, learner tensors replicated, and the
-    two nets' NOISE lane-sharded as [464, 64*ndev] -- every device keeps
-    its own independently sampled noise stream (averaging factorized
-    noise at chunk boundaries would shrink it toward zero, unlike
-    params/moments where the pmean IS the local-SGD combine).
-    ``memory_capacity`` is a GLOBAL transition count."""
-    from jax.sharding import NamedSharding
-
-    from merging_gym_tpu.nn.rainbow_net import rainbow_sample_noise
-    from merging_gym_tpu.ops import fused_rainbow as FRB
-
-    ndev = mesh.shape["data"]
-    if num_envs % ndev != 0:
-        raise ValueError(f"num_envs {num_envs} must divide over {ndev} devices")
-    if cfg.memory_capacity % ndev != 0:
-        raise ValueError(f"memory_capacity {cfg.memory_capacity} must divide "
-                         f"over {ndev} devices")
-    n_local = num_envs // ndev
-    carry = FRB.fused_rainbow_init(
-        key, cfg.replace(memory_capacity=cfg.memory_capacity // ndev),
-        env_params, n_local, opp_params, learn_batch=learn_batch)
-    lanes = NamedSharding(mesh, P(None, "data"))
-    rep = NamedSharding(mesh, P())
-    carry["env"] = _global_put(jnp.tile(carry["env"], (1, ndev)), lanes)
-    carry["ring"] = _global_put(
-        jnp.zeros((carry["ring"].shape[0], num_envs), jnp.float32), lanes)
-    # Per-device noise: ndev independent samples, concatenated lane-wise.
-    kn = jax.random.fold_in(key, 3)
-    for name, salt in (("eps", 0), ("teps", 1)):
-        packed = [FRB.rainbow_noise_to_packed(rainbow_sample_noise(
-            jax.random.fold_in(jax.random.fold_in(kn, salt), d),
-            cfg.num_actions, cfg.num_atoms)) for d in range(ndev)]
-        carry[name] = tuple(
-            _global_put(jnp.concatenate([pk[j] for pk in packed], axis=1),
-                        lanes) for j in range(2))
-    for k in ("p", "tp", "m", "v", "opp"):
-        carry[k] = tuple(jax.device_put(a, rep) for a in carry[k])
-    carry["n"] = num_envs
-    carry["n_local"] = n_local
-    return carry
-
-
-@lru_cache(maxsize=None)
-def _fused_rainbow_sharded(mesh: Mesh, num_steps: int, n_local: int, R: int,
-                           B: int, opp: int, roll: int, p_greedy: float,
-                           has_eps: bool, gamma: float, lr: float,
-                           sync_eps: float, obs_scale, faithful: bool,
-                           greedy: bool, random_start: bool,
-                           per: bool, n_step: int, alpha: float, beta: float,
-                           interpret: bool):
-    """Jitted shard_map for one fused-Rainbow config (cf.
-    _fused_dqn_sharded): per-chunk seed and counters are traced so chunk
-    launches reuse one Mosaic compilation.  The episodic target sync is
-    a PER-DEVICE decision driven entirely by the kernel's own on-chip
-    per-lane episode counters (env row 12) -- coherent local cadence,
-    consistent with the local-SGD design where learner state may
-    diverge between chunk-boundary pmeans.  With ``per``, each device
-    samples its own ring shard's priorities (an independent local PER
-    buffer, like the XLA spmd_rainbow path's per-device buffers) and the
-    running max priority is pmax'd at the chunk boundary so new-write
-    priorities stay globally consistent (cf. rainbow.py:294-298)."""
-    from merging_gym_tpu.ops import fused_rainbow as FRB
-
-    ndev = mesh.shape["data"]
-
-    def per_device(scal, rewards, rounds, p, tp, m, v, eps, teps, opp_p,
-                   env, ring):
-        # ``rounds`` is this device's shard of the host-drawn stream (the
-        # in_spec P("data") splits the [ndev*num_steps] vector); the lane
-        # window and the PER stratified offsets are drawn per device from
-        # the shared chunk key.
-        idx = jax.lax.axis_index("data")
-        dev_seed = _dev_seed_block(scal[0], idx, ndev, num_steps)
-        kc = jax.random.fold_in(jax.random.key(scal[0] ^ 0xC01), idx)
-        cols = jax.random.randint(kc, (num_steps,), 0,
-                                  1 if per else n_local // B, jnp.int32)
-        ku = jax.random.fold_in(jax.random.key(scal[0] ^ 0xBE7), idx)
-        us = (jax.random.uniform(ku, (num_steps,), jnp.float32)
-              if per else jnp.zeros((num_steps,), jnp.float32))
-        cfgv = jnp.stack([dev_seed, scal[1], scal[2], scal[3], scal[4],
-                          scal[5]])
-        arrays = tuple(list(p) + list(tp) + list(m) + list(v) + list(eps)
-                       + list(teps) + list(opp_p) + [env, ring])
-        out = FRB._call(cfgv, rewards, rounds, cols, us, arrays, num_steps,
-                        n_local, R, B, opp, roll, p_greedy, has_eps, gamma,
-                        lr, sync_eps, obs_scale, faithful, greedy,
-                        random_start=random_start, per=per, n_step=n_step,
-                        alpha=alpha, beta=beta, interpret=interpret)
-        po, tpo, mo, vo = out[0:8], out[8:16], out[16:24], out[24:32]
-        eps_o, teps_o = out[32:34], out[34:36]
-        env_o, ring_o, met_o, loss_o = out[36], out[37], out[38], out[39]
-        if per:
-            # Chunk-boundary global running max (rainbow.py:294-298).
-            env_o = env_o.at[13].set(jax.lax.pmax(env_o[13], "data"))
-        avg = lambda t: tuple(jax.lax.pmean(a, "data") for a in t)
-        met = jax.lax.psum(jnp.sum(met_o, axis=1), "data")
-        return (avg(po), avg(tpo), avg(mo), avg(vo), eps_o, teps_o,
-                env_o, ring_o, met, jax.lax.pmean(loss_o[0, 0], "data"))
-
-    rep8 = tuple(P() for _ in range(8))
-    lanes = P(None, "data")
-    lanes2 = (lanes, lanes)
-    return jax.jit(jax.shard_map(
-        per_device, mesh=mesh,
-        in_specs=(P(), P(), P("data"), rep8, rep8, rep8, rep8, lanes2,
-                  lanes2, tuple(P() for _ in range(6)), lanes, lanes),
-        out_specs=(rep8, rep8, rep8, rep8, lanes2, lanes2, lanes, lanes,
-                   P(), P()),
-        check_vma=False,
-    ))
-
-
-def spmd_fused_rainbow_chunk(mesh: Mesh, cfg, env_params: EnvParams, carry,
-                             num_steps: int, seed: int, *, greedy=False):
-    """One fused-Rainbow launch per device + chunk-boundary local-SGD
-    pmean of params/target/moments over ICI (noise stays per-device)."""
-    from merging_gym_tpu.ops import fused_rainbow as FRB
-    from merging_gym_tpu.ops import fused_trainer as FT
-
-    _check_fused_launch(num_steps, env_params, greedy)
-    ndev = mesh.shape["data"]
-    R = carry["R"]
-    B = carry.get("B", carry["n_local"])
-    has_eps = cfg.epsilon is not None
-    fn = _fused_rainbow_sharded(
-        mesh, num_steps, carry["n_local"], R, B, cfg.opponent,
-        int(cfg.opponent_roll), FT._phi(cfg.epsilon) if has_eps else 1.0,
-        has_eps, float(cfg.gamma), float(cfg.lr),
-        float(cfg.target_sync_episodes),
-        None if cfg.obs_scale is None else float(cfg.obs_scale),
-        bool(cfg.faithful_c51), bool(greedy),
-        bool(env_params.random_start), bool(cfg.per), int(cfg.n_step),
-        float(cfg.per_alpha), float(cfg.per_beta), FT._interpret_flag())
-    # Per-device round draws within the (shared) valid prefix; devices
-    # write their rings in lockstep so the fill schedule is global.
-    ks = jax.random.split(jax.random.key(seed ^ 0x51C), ndev)
-    rounds_all = jnp.stack(
-        [FRB.draw_start_rounds(carry, num_steps, k, int(cfg.n_step))
-         for k in ks]).reshape(-1)
-    scal = jnp.asarray([seed, env_params.max_steps, carry["warm"],
-                        carry["learns"], carry["steps"] % R,
-                        min(carry["steps"], R)], jnp.int32)
-    out = fn(scal, FT.rewards_cfg(env_params), rounds_all, carry["p"],
-             carry["tp"], carry["m"], carry["v"], tuple(carry["eps"]),
-             tuple(carry["teps"]), carry["opp"], carry["env"],
-             carry["ring"])
-    p, tp, m, v, eps, teps, env, ring, met, loss = out
-    import numpy as np
-    met = np.asarray(met)
-    return FRB.apply_rainbow_chunk(
-        carry, tuple(p) + tuple(tp) + tuple(m) + tuple(v) + tuple(eps)
-        + tuple(teps), env, ring, num_steps, met, float(np.asarray(loss)),
-        nwarm=int(cfg.n_step))
-
-
-def spmd_fused_drqn_init(key, cfg, env_params: EnvParams, num_envs: int,
-                         mesh: Mesh, opp_params=None, learn_batch=None):
-    """Sharded fused-DRQN carry (cf. spmd_fused_dqn_init): env rows
-    (incl. both seats' per-env LSTM state), window slot buffer and
-    sequence ring lane-sharded over ``data``; learner state (12-tuples)
-    replicated.  ``memory_capacity`` is a GLOBAL window count."""
-    from jax.sharding import NamedSharding
-
-    from merging_gym_tpu.ops import fused_drqn as FD
-
-    ndev = mesh.shape["data"]
-    if num_envs % ndev != 0:
-        raise ValueError(f"num_envs {num_envs} must divide over {ndev} devices")
-    if cfg.memory_capacity % ndev != 0:
-        raise ValueError(f"memory_capacity {cfg.memory_capacity} must divide "
-                         f"over {ndev} devices (a GLOBAL window count, split "
-                         "into per-device rings)")
-    n_local = num_envs // ndev
-    carry = FD.fused_drqn_init(
-        key, cfg.replace(memory_capacity=cfg.memory_capacity // ndev),
-        env_params, n_local, opp_params, learn_batch=learn_batch)
-    lanes = NamedSharding(mesh, P(None, "data"))
-    rep = NamedSharding(mesh, P())
-    carry["env"] = _global_put(jnp.tile(carry["env"], (1, ndev)), lanes)
-    carry["win"] = _global_put(jnp.tile(carry["win"], (1, ndev)), lanes)
-    carry["ring"] = _global_put(
-        jnp.zeros((carry["ring"].shape[0], num_envs), jnp.float32), lanes)
-    for k in ("p", "tp", "m", "v", "opp"):
-        carry[k] = tuple(_global_put(a, rep) for a in carry[k])
-    carry["n"] = num_envs
-    carry["n_local"] = n_local
-    return carry
-
-
-@lru_cache(maxsize=None)
-def _fused_drqn_sharded(mesh: Mesh, num_steps: int, n_local: int, R: int,
-                        B: int, L: int, burn_in: int, opp: str,
-                        p_greedy: float, num_actions: int, gamma: float,
-                        lr: float, target_sync: int, greedy: bool,
-                        random_start: bool, interpret: bool):
-    """Jitted shard_map for one fused-DRQN config (cf. _fused_dqn_sharded):
-    per-chunk seed and warm/learns/base counters are traced (``scal``)
-    so chunk launches reuse one Mosaic compilation."""
-    from merging_gym_tpu.ops import fused_drqn as FD
-
-    ndev = mesh.shape["data"]
-
-    def per_device(scal, rewards, p, tp, m, v, opp_p, env, win, ring):
-        idx = jax.lax.axis_index("data")
-        dev_seed = _dev_seed_block(scal[0], idx, ndev, num_steps)
-        kd = jax.random.fold_in(jax.random.key(scal[0] ^ 0xD7D7), idx)
-        k_r, k_c = jax.random.split(kd)
-        rounds = jax.random.randint(k_r, (num_steps,), 0, R, jnp.int32)
-        cols = jax.random.randint(k_c, (num_steps,), 0, n_local // B,
-                                  jnp.int32)
-        cfgv = jnp.stack([dev_seed, scal[1], scal[2], scal[3], scal[4]])
-        arrays = tuple(list(p) + list(tp) + list(m) + list(v) + list(opp_p)
-                       + [env, win, ring])
-        out = FD._call(cfgv, rewards, rounds, cols, arrays, num_steps,
-                       n_local, R, B, L, burn_in, opp, p_greedy,
-                       num_actions, gamma, lr, target_sync, greedy,
-                       random_start=random_start, interpret=interpret)
-        NP = 12
-        po, tpo = out[0:NP], out[NP:2 * NP]
-        mo, vo = out[2 * NP:3 * NP], out[3 * NP:4 * NP]
-        env_o, win_o, ring_o = out[4 * NP], out[4 * NP + 1], out[4 * NP + 2]
-        met_o, loss_o = out[4 * NP + 3], out[4 * NP + 4]
-        avg = lambda t: tuple(jax.lax.pmean(a, "data") for a in t)
-        loss = jax.lax.pmean(loss_o[0, 0], "data")
-        met = jax.lax.psum(jnp.sum(met_o, axis=1), "data")
-        return (avg(po), avg(tpo), avg(mo), avg(vo), env_o, win_o, ring_o,
-                met, loss)
-
-    rep12 = tuple(P() for _ in range(12))
-    lanes = P(None, "data")
-    return jax.jit(jax.shard_map(
-        per_device, mesh=mesh,
-        in_specs=(P(), P(), rep12, rep12, rep12, rep12, rep12, lanes,
-                  lanes, lanes),
-        out_specs=(rep12, rep12, rep12, rep12, lanes, lanes, lanes, P(),
-                   P()),
-        check_vma=False,
-    ))
-
-
-def spmd_fused_drqn_chunk(mesh: Mesh, cfg, env_params: EnvParams, carry,
-                          num_steps: int, seed: int, *, greedy=False):
-    """One fused-DRQN launch per device + chunk-boundary local-SGD pmean
-    of params/target/moments over ICI (cf. spmd_fused_dqn_chunk)."""
-    from merging_gym_tpu.ops import fused_drqn as FD
-    from merging_gym_tpu.ops import fused_trainer as FT
-
-    _check_fused_launch(num_steps, env_params, greedy)
-    R, B, L = carry["R"], carry["B"], carry["L"]
-    fn = _fused_drqn_sharded(mesh, num_steps, carry["n_local"], R, B, L,
-                             int(cfg.burn_in), cfg.opponent,
-                             FT._phi(cfg.epsilon), cfg.num_actions,
-                             float(cfg.gamma), float(cfg.lr),
-                             int(cfg.target_sync), bool(greedy),
-                             bool(env_params.random_start),
-                             FT._interpret_flag())
-    scal = jnp.asarray([seed, env_params.max_steps, carry["warm"],
-                        carry["learns"],
-                        carry.get("steps", 0) % (L * R)], jnp.int32)
-    out = fn(scal, FT.rewards_cfg(env_params), carry["p"], carry["tp"],
-             carry["m"], carry["v"], carry["opp"], carry["env"],
-             carry["win"], carry["ring"])
-    p, tp, m, v, env, win, ring, met, loss = out
-    import numpy as np
-    flat = list(p) + list(tp) + list(m) + list(v) + [env, win, ring]
-    return FD.apply_drqn_chunk(carry, flat, num_steps, np.asarray(met),
-                               float(np.asarray(loss)))

@@ -7,7 +7,7 @@ whole trainings -- its checkpoint dirs encode the sweep by hand:
 reward parameters are PyTree *leaves* of ``EnvParams`` (not baked
 constants), a sweep is just one more batch dimension: ``vmap`` the fused
 actor+replay+learner chunk over stacked ``(EnvParams, TrainCarry)`` and
-the TPU trains every configuration simultaneously in a single program --
+the GPU trains every configuration simultaneously in a single program --
 no retracing, no serial runs, near-perfect utilisation since the configs
 share every shape.
 

@@ -11,7 +11,7 @@ merging_env.py:262-284), and a speed + accumulated-reward HUD.
 Unlike the reference -- whose env constructor owns a pygame window and
 whose step loop is therefore welded to SDL (merging_env.py:82-98) -- this
 renderer consumes plain state snapshots (dicts of floats), so the same
-training loop runs headless on TPU and is visualised only when a human
+training loop runs headless on the GPU and is visualised only when a human
 asks.  Works under ``SDL_VIDEODRIVER=dummy`` for tests.
 """
 

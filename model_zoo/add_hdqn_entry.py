@@ -35,7 +35,7 @@ def main():
     ap.add_argument("--num-envs", type=int, default=128)
     ap.add_argument("--episodes", type=int, default=256)
     ap.add_argument("--cpu", action="store_true",
-                    help="evaluate on the CPU backend (leave the TPU free)")
+                    help="evaluate on the CPU backend (leave the GPU free)")
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")

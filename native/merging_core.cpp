@@ -9,7 +9,7 @@
 // equality-constrained KKT solver standing in for quadprog.
 //
 // Used from Python via ctypes (merging_gym_tpu/core/native.py) for the
-// host-side paths where a TPU round-trip is overkill: human play,
+// host-side paths where a device round-trip is overkill: human play,
 // single-env evaluation, CPU trajectory generation, and as a second
 // independent parity oracle against core/oracle.py.
 //

@@ -1,115 +1,163 @@
-"""Fused single-kernel rollout vs the XLA scan path (interpret mode on
-CPU for the precomputed-actions mode; the PRNG mode is TPU-only and is
-exercised by the benchmark drives)."""
+"""The rollout kernel (ops/fused_rollout.py) in the Pallas interpreter
+against the plain XLA rollout (core.vector), which it must reproduce:
+events exactly, floats to rounding."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from merging_gym_tpu.core import constants as C
 from merging_gym_tpu.core.env import EnvParams
-from merging_gym_tpu.core.vector import autoreset_step, reset_batch
 from merging_gym_tpu.ops import fused_rollout as FR
 
-
-@pytest.fixture(autouse=True)
-def _interpret_mode(monkeypatch):
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*args, **kwargs):
-        kwargs.setdefault("interpret", True)
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(FR.pl, "pallas_call", patched)
-    yield
+import chip_smoke
 
 
-def test_fused_matches_scan_path():
-    T, N = 60, 128
-    params = EnvParams()
-    rng = np.random.default_rng(0)
-    actions = rng.integers(-1, C.NUM_ACTIONS, size=(T, N, 2)).astype(np.int32)
-
-    out = FR.fused_rollout(T, N, actions=np.transpose(actions, (0, 2, 1)))
-
-    state = reset_batch(params, jax.random.key(0), N)
-    for t in range(T):
-        state, ts = autoreset_step(params, state, jnp.asarray(actions[t]),
-                                   jax.random.key(t))
-        # atol 1e-3 m: the x2-x1 / x1-x2 dims subtract two ~1000-scale
-        # R*sin terms, so f32 FMA-ordering differences between the pallas
-        # interpreter and XLA are ~1e-4.
-        np.testing.assert_allclose(np.asarray(out["obs"][t]).T,
-                                   np.asarray(ts.obs), rtol=1e-6, atol=1e-3,
-                                   err_msg=f"obs step {t}")
-        np.testing.assert_allclose(np.asarray(out["rewards"][t]).T,
-                                   np.asarray(ts.rewards), rtol=1e-6, atol=1e-6,
-                                   err_msg=f"rewards step {t}")
-        np.testing.assert_array_equal(np.asarray(out["done"][t]),
-                                      np.asarray(ts.done))
-        np.testing.assert_array_equal(np.asarray(out["winner"][t]),
-                                      np.asarray(ts.winner))
-        np.testing.assert_array_equal(np.asarray(out["collision"][t]),
-                                      np.asarray(ts.collision))
+def _actions(T, N, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-1, C.NUM_ACTIONS, size=(T, 2, N)).astype(np.int32)
 
 
-def test_fused_autoreset_and_episodes_complete():
+def _kernel(T, N, block=32, counters=False, **kw):
+    fn = FR.fused_rollout_counters if counters else FR.fused_rollout
+    return fn(T, N, block_envs=block, num_warps=1, interpret=True, **kw)
+
+
+def _check_traj(T, N, block, **kw):
+    got = _kernel(T, N, block, **kw)
+    want = FR.reference_rollout(T, N, **kw)
+    chip_smoke.compare_trajectories(got, want)
+    return got
+
+
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("num_envs", [1, 77, 128, 300, 1024])
+def test_trajectory_matches_reference_actions_mode(num_envs, block):
+    T = 96
+    _check_traj(T, num_envs, block, actions=_actions(T, num_envs))
+
+
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("num_envs", [1, 77, 300])
+def test_trajectory_matches_reference_seed_mode(num_envs, block):
+    _check_traj(96, num_envs, block, seed=11)
+
+
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("num_envs", [1, 77, 128, 300, 1024])
+def test_counters_match_reference(num_envs, block):
+    T = 96
+    kw = {"actions": _actions(T, num_envs, seed=1)}
+    chip_smoke.compare_counters(_kernel(T, num_envs, block, True, **kw),
+                                FR.reference_rollout_counters(T, num_envs,
+                                                              **kw))
+
+
+def test_events_occur_in_checked_horizon():
+    """The comparisons above are not vacuous: a 300-step random rollout
+    produces collisions, wins for both seats and completed episodes."""
     T, N = 300, 128
-    # Everyone floors it vs L0: ego wins, L0 coasts in later; episodes end
-    # and restart within T steps.
-    actions = np.zeros((T, 2, N), np.int32)
-    actions[:, 0, :] = 4
-    actions[:, 1, :] = -1
-    out = FR.fused_rollout(T, N, actions=actions)
-    done = np.asarray(out["done"])
-    assert done.any()
-    # After a done, the next step's obs distance-to-go returns near start.
-    t_done = np.argwhere(done[:, 0])[0, 0]
-    assert float(out["obs"][t_done + 1, 3, 0]) > 890.0
+    cnt = _kernel(T, N, 64, True, seed=2)
+    assert int(np.sum(cnt["episodes"])) > 0
+    assert int(np.sum(cnt["collisions"])) > 0
+    assert int(np.sum(cnt["wins1"])) > 0 and int(np.sum(cnt["wins2"])) > 0
+    chip_smoke.compare_counters(cnt, FR.reference_rollout_counters(T, N,
+                                                                   seed=2))
 
 
-def test_fused_reward_params_respected():
-    T, N = 200, 128
-    actions = np.full((T, 2, N), 2, np.int32)  # mirror matchup -> collision
-    out_a = FR.fused_rollout(T, N, actions=actions)
-    out_b = FR.fused_rollout(T, N, actions=actions,
-                             env_params=EnvParams(r_collision=-100.0))
-    ra = float(np.asarray(out_a["rewards"]).min())
-    rb = float(np.asarray(out_b["rewards"]).min())
-    assert ra > -20 and rb < -90
+@pytest.mark.parametrize("max_steps", [1, 5, 37])
+def test_short_max_steps_forces_timeouts(max_steps):
+    T, N = 80, 40
+    ep = EnvParams(max_steps=max_steps)
+    acts = np.zeros((T, 2, N), np.int32)       # both brake: only timeouts
+    got = _check_traj(T, N, 32, actions=acts, env_params=ep)
+    done = np.asarray(got["done"])
+    steps = np.arange(1, T + 1)[:, None]
+    np.testing.assert_array_equal(done, np.broadcast_to(
+        steps % max_steps == 0, done.shape))
 
 
-def test_fused_honors_max_steps():
-    T, N = 130, 128
-    actions = np.zeros((T, 2, N), np.int32)  # both brake: only timeout ends
-    out = FR.fused_rollout(T, N, actions=actions,
-                           env_params=EnvParams(max_steps=100))
-    done = np.asarray(out["done"])
-    assert int(done[:, 0].argmax()) == 99      # cap at step 100 (0-indexed)
-    assert done[99].all()
-    # default cap unaffected
-    out2 = FR.fused_rollout(T, N, actions=actions)
-    assert not np.asarray(out2["done"]).any()
+@pytest.mark.parametrize("params", [
+    EnvParams(r_collision=-100.0),
+    EnvParams(r_first=5.0, r_second=0.5),
+    EnvParams(vel_penalty=0.01, time_penalty=0.1),
+], ids=["collision", "bonuses", "penalties"])
+def test_reward_variants(params):
+    T, N = 200, 64
+    got = _check_traj(T, N, 64, seed=5, env_params=params)
+    cnt = _kernel(T, N, 64, True, seed=5, env_params=params)
+    chip_smoke.compare_counters(cnt, chip_smoke.counters_of(got))
 
 
-def test_fused_unroll_matches_unroll1():
-    """Time-unrolled kernel (K env steps per grid iteration) reproduces
-    the step-per-iteration kernel in actions mode: events (done, winner,
-    collision) exactly, floats to 1-ULP (XLA may contract the unrolled
-    body's FMAs differently)."""
-    T, N = 24, 128
-    rng = np.random.default_rng(3)
-    actions = rng.integers(-1, C.NUM_ACTIONS, size=(T, 2, N)).astype(np.int32)
-    base = FR.fused_rollout(T, N, actions=actions)
-    for K in (2, 4, 8):
-        out = FR.fused_rollout(T, N, actions=actions, unroll=K)
-        for k in ("done", "winner", "collision"):
-            np.testing.assert_array_equal(np.asarray(out[k]),
-                                          np.asarray(base[k]), err_msg=k)
-        for k in ("obs", "rewards"):
-            np.testing.assert_allclose(np.asarray(out[k]),
-                                       np.asarray(base[k]),
-                                       rtol=1e-6, atol=1e-7, err_msg=k)
+def test_collision_reward_reaches_both_seats():
+    T, N = 200, 32
+    acts = np.full((T, 2, N), 2, np.int32)     # mirror matchup -> collision
+    base = _kernel(T, N, actions=acts)
+    harsh = _kernel(T, N, actions=acts, env_params=EnvParams(r_collision=-100.))
+    col = np.asarray(base["collision"])
+    assert col.any()
+    diff = np.asarray(harsh["rewards"]) - np.asarray(base["rewards"])
+    np.testing.assert_allclose(diff[:, 0][col], -90.0, atol=1e-4)
+    np.testing.assert_allclose(diff[:, 1][col], -90.0, atol=1e-4)
+    np.testing.assert_allclose(diff[:, 0][~col], 0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("counters", [False, True])
+def test_single_step(counters):
+    kw = {"actions": _actions(1, 5)}
+    got = _kernel(1, 5, 32, counters, **kw)
+    if counters:
+        chip_smoke.compare_counters(got, FR.reference_rollout_counters(1, 5,
+                                                                       **kw))
+    else:
+        chip_smoke.compare_trajectories(got, FR.reference_rollout(1, 5, **kw))
+        np.testing.assert_allclose(np.asarray(got["obs"])[0, 3],
+                                   C.END_POINT - C.START_POINT - np.asarray(
+                                       got["obs"])[0, 4] * C.DT, atol=1e-3)
+
+
+def test_tail_tile_is_masked():
+    """Envs past num_envs in the last tile neither read nor write: the
+    outputs have exactly num_envs columns equal to the reference."""
+    T, N = 30, 33
+    acts = _actions(T, N, seed=4)
+    got = _kernel(T, N, 32, actions=acts)
+    assert np.asarray(got["obs"]).shape == (T, 10, N)
+    cnt = _kernel(T, N, 32, True, actions=acts)
+    assert np.asarray(cnt["reward_sum"]).shape == (2, N)
+    chip_smoke.compare_counters(cnt, chip_smoke.counters_of(got))
+
+
+def test_autoreset_restarts_from_the_start_state():
+    T, N = 300, 8
+    acts = np.zeros((T, 2, N), np.int32)
+    acts[:, 0] = 4                               # ego floors it vs L0
+    acts[:, 1] = C.ACTION_NONE
+    got = _kernel(T, N, actions=acts)
+    done = np.asarray(got["done"])[:, 0]
+    t_done = int(np.argmax(done))
+    assert done[t_done]
+    # The step after a reset starts again near the start line.
+    assert float(np.asarray(got["obs"])[t_done + 1, 3, 0]) > 890.0
+
+
+@pytest.mark.parametrize("fn", [FR.fused_rollout, FR.fused_rollout_counters,
+                                FR.reference_rollout])
+def test_random_start_is_refused(fn):
+    with pytest.raises(ValueError, match="deterministic starts"):
+        fn(4, 8, seed=0, env_params=EnvParams(random_start=True))
+
+
+@pytest.mark.parametrize("kw", [{}, {"seed": 0, "actions": _actions(4, 8)}],
+                         ids=["neither", "both"])
+def test_exactly_one_action_source(kw):
+    with pytest.raises(ValueError, match="exactly one"):
+        FR.fused_rollout(4, 8, **kw)
+
+
+def test_bad_shapes_and_tiles_are_refused():
+    with pytest.raises(ValueError, match="actions must be"):
+        FR.fused_rollout(4, 8, actions=_actions(4, 9))
+    with pytest.raises(ValueError, match="power of two"):
+        FR.fused_rollout(4, 8, seed=0, block_envs=48)
+    with pytest.raises(ValueError, match="too large"):
+        FR.fused_rollout(2600, 131072, seed=0)

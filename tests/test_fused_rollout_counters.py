@@ -1,86 +1,53 @@
-"""Locks for the reduce-on-chip rollout (ops/fused_rollout.py,
-``fused_rollout_counters``): its outcome counters must equal the same
-reductions computed from the trajectory-writing kernel's outputs.
+"""Locks for the counters mode of the rollout kernel
+(``fused_rollout_counters``): its per-env counters equal the reductions
+of the trajectory kernel's outputs over the same action stream, in
+actions mode and in seed mode, whatever the tiling."""
 
-Actions mode runs under the Pallas interpreter on CPU (like
-test_fused_rollout.py); the seed-mode equality lock needs the TPU PRNG
-(no CPU interpreter lowering) and is skipped off-TPU -- it is also run
-by the benchmark drive (benchmarks/rollout_cost_probe.py --counters).
-"""
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from merging_gym_tpu.core import constants as C
-from merging_gym_tpu.core.env import EnvParams
 from merging_gym_tpu.ops import fused_rollout as FR
 
-
-@pytest.fixture
-def _interpret_mode(monkeypatch):
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*args, **kwargs):
-        kwargs.setdefault("interpret", True)
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(FR.pl, "pallas_call", patched)
-    yield
+import chip_smoke
 
 
-def _assert_counters_match(traj, cnt, atol=1e-3):
-    done = np.asarray(traj["done"])
-    win = np.asarray(traj["winner"])
-    col = np.asarray(traj["collision"])
-    np.testing.assert_allclose(
-        np.asarray(cnt["reward_sum"]),
-        np.asarray(traj["rewards"]).sum(axis=0),
-        rtol=1e-5, atol=atol)
-    np.testing.assert_array_equal(np.asarray(cnt["episodes"]), done.sum(0))
-    np.testing.assert_array_equal(np.asarray(cnt["collisions"]), col.sum(0))
-    np.testing.assert_array_equal(np.asarray(cnt["wins1"]),
-                                  (done & (win == 1) & ~col).sum(0))
-    np.testing.assert_array_equal(np.asarray(cnt["wins2"]),
-                                  (done & (win == 2) & ~col).sum(0))
+def _run(counters, T, N, block=64, warps=1, **kw):
+    fn = FR.fused_rollout_counters if counters else FR.fused_rollout
+    return fn(T, N, block_envs=block, num_warps=warps, interpret=True, **kw)
 
 
-@pytest.mark.parametrize("unroll", [1, 4])
-def test_counters_match_trajectory_reductions(_interpret_mode, unroll):
-    T, N = 400, 128
+@pytest.mark.parametrize("num_envs", [50, 256])
+def test_counters_match_trajectory_reductions_actions_mode(num_envs):
+    T = 400
     rng = np.random.default_rng(3)
-    actions = rng.integers(-1, C.NUM_ACTIONS, size=(T, 2, N)).astype(np.int32)
-    traj = FR.fused_rollout(T, N, actions=actions, unroll=unroll)
-    cnt = FR.fused_rollout_counters(T, N, actions=actions, unroll=unroll)
+    kw = {"actions": rng.integers(-1, C.NUM_ACTIONS, size=(T, 2, num_envs)
+                                  ).astype(np.int32)}
+    traj = _run(False, T, num_envs, **kw)
+    cnt = _run(True, T, num_envs, **kw)
     # Random joint actions over 400 steps produce every outcome class;
     # guard that the lock is not vacuous.
-    assert int(np.asarray(cnt["episodes"]).sum()) > 0
-    assert int(np.asarray(cnt["collisions"]).sum()) > 0
-    _assert_counters_match(traj, cnt)
+    assert int(np.sum(cnt["episodes"])) > 0
+    assert int(np.sum(cnt["collisions"])) > 0
+    chip_smoke.compare_counters(cnt, chip_smoke.counters_of(traj))
 
 
-def test_counters_respect_reward_params(_interpret_mode):
-    T, N = 200, 128
-    actions = np.full((T, 2, N), 2, np.int32)  # mirror matchup -> collision
-    a = FR.fused_rollout_counters(T, N, actions=actions)
-    b = FR.fused_rollout_counters(T, N, actions=actions,
-                                  env_params=EnvParams(r_collision=-100.0))
-    assert int(np.asarray(a["collisions"]).sum()) > 0
-    assert float(np.asarray(b["reward_sum"]).min()) < \
-        float(np.asarray(a["reward_sum"]).min()) * 5
+@pytest.mark.parametrize("block,warps", [(32, 1), (64, 2), (128, 4)])
+def test_counters_match_trajectory_reductions_seed_mode(block, warps):
+    T, N, seed = 512, 200, 7
+    traj = _run(False, T, N, block, warps, seed=seed)
+    cnt = _run(True, T, N, block, warps, seed=seed)
+    chip_smoke.compare_counters(cnt, chip_smoke.counters_of(traj))
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="pltpu PRNG has no CPU interpreter lowering")
-def test_counters_match_trajectory_seed_mode_tpu():
-    # Matched (seed, unroll, env tiling) => both kernels draw identical
-    # PRNG action streams (fused_rollout docstring caveat), so the
-    # counters must match the trajectory reductions exactly.
-    T, N, unroll, seed = 512, 256, 8, 7
-    traj = FR.fused_rollout(T, N, seed=seed, unroll=unroll)
-    cnt = FR.fused_rollout_counters(T, N, seed=seed, unroll=unroll)
-    jax.block_until_ready(cnt["reward_sum"])
-    _assert_counters_match(traj, cnt, atol=5e-3)
+@pytest.mark.parametrize("counters", [False, True])
+def test_seed_mode_is_independent_of_tiling(counters):
+    """The counter-based generator keys each draw by (seed, env, step), so
+    one seed gives one stream whatever the tile size."""
+    T, N = 120, 100
+    base = _run(counters, T, N, 32, seed=9)
+    for block in (64, 128):
+        other = _run(counters, T, N, block, seed=9)
+        for k in base:
+            np.testing.assert_array_equal(np.asarray(other[k]),
+                                          np.asarray(base[k]), err_msg=k)
